@@ -1,0 +1,97 @@
+"""Config parity: the port's copy of the YAML system and ``GPTConfig``
+read the serving recipe exactly as the JAX package does."""
+
+import dataclasses
+import os
+
+import pytest
+
+from paddlefleetx_tpu.models.gpt import GPTConfig as JaxGPTConfig
+from paddlefleetx_tpu.models.language_utils import (
+    process_model_configs as jax_process_model_configs,
+)
+from paddlefleetx_tpu.utils.config import get_config as jax_get_config
+from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
+from paddlefleetx_tpu_torch.models.language_utils import (
+    process_model_configs,
+)
+from paddlefleetx_tpu_torch.utils.config import get_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GEN = os.path.join(ROOT, "configs", "nlp", "gpt",
+                   "generation_gpt_345M_single_card.yaml")
+
+
+@pytest.mark.parametrize("overrides", [
+    [],
+    ["Generation.max_dec_len=16", "Model.num_layers=2",
+     "Engine.mix_precision.use_pure_fp16=False"],
+])
+def test_same_tree_in_both_packages(overrides):
+    ours = get_config(GEN, overrides)
+    theirs = jax_get_config(GEN, overrides, nranks=1)
+    assert ours == theirs
+    process_model_configs(ours)
+    jax_process_model_configs(theirs)
+    assert ours == theirs
+
+
+def test_gpt_config_fields_match_jax():
+    ours = GPTConfig.from_config(get_config(GEN))
+    theirs = JaxGPTConfig.from_config(jax_get_config(GEN, nranks=1))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.dtype == "bfloat16"
+    assert ours.num_layers == 24 and ours.hidden_size == 1024
+    assert ours.num_attention_heads == 16 and ours.head_dim == 64
+    assert ours.vocab_size == 50304
+    assert ours.max_position_embeddings == 1024
+    assert ours.use_flash_attention is True
+    assert ours.cache_capacity == theirs.cache_capacity == 1024
+    assert [f.name for f in dataclasses.fields(GPTConfig)] == \
+        [f.name for f in dataclasses.fields(JaxGPTConfig)]
+
+
+def test_fp32_override_gives_fp32_compute():
+    cfg = GPTConfig.from_config(get_config(
+        GEN, ["Engine.mix_precision.use_pure_fp16=False"]))
+    assert cfg.dtype == "float32"
+
+
+@pytest.mark.parametrize("knob", [
+    {"kv_page_size": 128, "kv_pool_pages": 9},
+    {"kv_cache_dtype": "int8"},
+    {"quant_execution": "weight_only_int8"},
+    {"lora_rank": 4, "lora_num_adapters": 2},
+    {"moe_num_experts": 4},
+    {"context_parallel": True},
+    {"fuse_attn_qkv": False},
+])
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                  num_attention_heads=2, max_position_embeddings=128,
+                  **knob)
+
+
+@pytest.mark.parametrize("bad", [
+    {"recompute_granularity": "nope"},
+    {"pipeline_schedule": "nope"},
+    {"kv_cache_dtype": "fp8"},
+    {"num_attention_heads": 5},
+])
+def test_invalid_values_raise_like_jax(bad):
+    kw = {"vocab_size": 64, "hidden_size": 32, "num_layers": 1,
+          "num_attention_heads": 2, **bad}
+    with pytest.raises(ValueError):
+        JaxGPTConfig(**kw)
+    with pytest.raises(ValueError):
+        GPTConfig(**kw)
+
+
+def test_override_semantics():
+    cfg = get_config(GEN, ["Global.seed=7", "Model.scan_layers=True"])
+    assert cfg.Global.seed == 7 and cfg.Model.scan_layers is True
+    with pytest.raises(TypeError, match="scalar"):
+        get_config(GEN, ["Global.seed.x=1"])
+    with pytest.raises(ValueError, match="key=value"):
+        get_config(GEN, ["Global.seed"])
