@@ -4,6 +4,14 @@
         [--text TEXT] [--device cuda|cpu]
     python -m paddlefleetx_tpu_torch.cli serve -c <yaml> [-o k=v] \
         [--requests N] [--slots S] [--max-prompt-len L] [--device ...]
+    python -m paddlefleetx_tpu_torch.cli train -c <yaml> [-o k=v] \
+        [--device cuda|cpu]
+
+``train`` is the counterpart of the JAX package's ``cli.train_main``:
+config -> ``GPTModule`` -> ``Engine`` -> the Train / Eval loaders of the
+``Data`` section -> ``Engine.fit`` (a token corpus of ``*_ids.npy`` +
+``*_idx.npz`` files in ``Data.*.dataset.input_dir``; resume with ``-o
+Engine.save_load.ckpt_dir=<dir>``).
 
 ``generate`` is the counterpart of the JAX package's
 ``tasks/gpt/generation.py``: config -> ``GPTGenerationModule`` ->
@@ -12,8 +20,9 @@ prompts of seeded random tokens (lengths uniform in 5..``--max-prompt-
 len``, capped at the longest prompt the server admits beside
 ``max_dec_len``; seed ``Global.seed``) to a ``GenerationServer`` with
 ``--slots`` slots, runs it to completion and prints one JSON line per
-completion and a summary line. Weights are drawn from ``Global.seed``
-(no checkpoint loading yet). Both run on the card unless ``--device cpu``.
+completion and a summary line. Both draw their weights from
+``Global.seed`` (they load no checkpoint yet). All three run on the card
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -24,8 +33,10 @@ from typing import List, Optional
 
 import numpy as np
 
+from .core.engine import Engine
 from .core.serving import GenerationServer
-from .models.gpt.modules import GPTGenerationModule
+from .data import build_dataloader
+from .models.gpt.modules import GPTGenerationModule, GPTModule
 from .utils.config import get_config, parse_args
 from .utils.log import logger
 
@@ -79,10 +90,34 @@ def serve_main(argv: Optional[List[str]] = None) -> dict:
     return summary
 
 
+def train_main(argv: Optional[List[str]] = None) -> Engine:
+    """Train the configured model: config -> ``GPTModule`` -> ``Engine``
+    -> loaders -> ``Engine.fit``; returns the engine (its ``history``
+    holds the logged steps)."""
+    args = parse_args(argv, extra=lambda p: p.add_argument(
+        "--device", default=None))
+    cfg = get_config(args.config, args.override)
+    name = cfg.Model.get("module", "GPTModule")
+    if name != "GPTModule":
+        raise NotImplementedError(f"module {name!r} is not ported")
+    module = GPTModule(cfg, device=args.device)
+    engine = Engine(cfg, module, mode="train", device=args.device)
+    loaders = [build_dataloader(cfg.Data, mode) for mode in ("Train", "Eval")]
+    for loader in loaders:
+        if loader is not None:
+            loader.batch_sampler.batch_size = cfg.Global.global_batch_size
+    engine.fit(epoch=cfg.Engine.get("num_train_epochs", 1),
+               train_data_loader=loaders[0], valid_data_loader=loaders[1])
+    logger.info("training finished")
+    return engine
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    """``python -m paddlefleetx_tpu_torch.cli {generate,serve} ...``."""
+    """``python -m paddlefleetx_tpu_torch.cli {generate,serve,train}
+    ...``."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    commands = {"generate": generate_main, "serve": serve_main}
+    commands = {"generate": generate_main, "serve": serve_main,
+                "train": train_main}
     if not argv or argv[0] not in commands:
         print(f"usage: python -m paddlefleetx_tpu_torch.cli "
               f"{{{','.join(commands)}}} -c <yaml> [-o k=v ...]",

@@ -1,10 +1,18 @@
 // Flash-attention forward for Hopper (sm_90a), the port's prefill kernel.
 //
 // Replaces: paddlefleetx_tpu/ops/pallas/flash_attention.py `_fwd_kernel`
-// (launched by `_flash_forward`, pallas_call at :362), without dropout.
-// Computes O = softmax(mask(q k^T * scale) + bias) v and the per-row
-// logsumexp, online over KV tiles, with scores and the running
+// (launched by `_flash_forward`, pallas_call at :362, and with dropout
+// at :354). Computes O = softmax(mask(q k^T * scale) + bias) v and the
+// per-row logsumexp, online over KV tiles, with scores and the running
 // max / sum / accumulator in fp32.
+//
+// Dropout (training): the keep mask of each probability is Philox on
+// its absolute (bh, query, key) coordinates (philox.cuh), so the
+// backward kernels (flash_bwd.cu) rebuild it without storing it. As in
+// the TPU kernel's `_online_update` (:150-175) the normaliser l and the
+// lse sum the UNDROPPED p; only the P.V operand is masked and scaled by
+// 1 / (1 - rate). The dropout code is a template branch: a rate-0
+// launch runs the same instructions as the kernel without it.
 //
 // Layout: q, k, v and O are [b, s, h, d] (the JAX package's public
 // layout), lse is [b, h, sq] fp32, bias is fp32 and broadcastable from
@@ -34,6 +42,7 @@
 //   threads of a row by warp shuffles, never through memory.
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -43,7 +52,7 @@ constexpr int kTpr = 4;                      // threads per query row
 constexpr int kThreads = kBlockM * kTpr;     // 256
 constexpr int kKpt = kBlockN / kTpr;         // keys per thread per tile
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
@@ -51,7 +60,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ bias, float* __restrict__ o,
                      float* __restrict__ lse, int h, int sq, int skv,
                      long long bias_sb, long long bias_sh, long long bias_sq,
-                     float sm_scale, int causal) {
+                     float sm_scale, int causal, pfx::Dropout drop) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int kGroups = D / 16;   // 4-wide output groups per thread
   constexpr int kKStride = D + 4;   // padded fp32 row, 16-byte aligned
@@ -147,6 +156,13 @@ __global__ void __launch_bounds__(kThreads)
     ls += __shfl_xor_sync(0xffffffffu, ls, 1);
     ls += __shfl_xor_sync(0xffffffffu, ls, 2);
     l = l * alpha + ls;
+    if (kDrop) {
+      // only the P.V operand is dropped; l above summed the full p
+#pragma unroll
+      for (int jj = 0; jj < kKpt; ++jj)
+        s[jj] = drop.keep(bh, row, n0 + c + kTpr * jj) ? s[jj] * drop.scale
+                                                        : 0.f;
+    }
 #pragma unroll
     for (int g = 0; g < kGroups; ++g)
 #pragma unroll
@@ -221,7 +237,7 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int D>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -230,7 +246,8 @@ __global__ void __launch_bounds__(kMmaThreads)
                          __nv_bfloat16* __restrict__ o,
                          float* __restrict__ lse, int h, int sq, int skv,
                          long long bias_sb, long long bias_sh,
-                         long long bias_sq, float sm_scale, int causal) {
+                         long long bias_sq, float sm_scale, int causal,
+                         pfx::Dropout drop) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int kK = D / 16;              // k16 steps over head_dim
   constexpr int kNb = kMmaBlockN / 8;     // n8 blocks of scores per tile
@@ -353,6 +370,19 @@ __global__ void __launch_bounds__(kMmaThreads)
         s[nb][e] = expf(s[nb][e] - m[e >> 1]);
         l[e >> 1] += s[nb][e];
       }
+    if (kDrop) {
+      // only the P.V operand is dropped; l above summed the full p.
+      // Elements (2i, 2i+1) of block nb are keys col, col + 1 of row i.
+#pragma unroll
+      for (int nb = 0; nb < kNb; ++nb)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          bool kp[2];
+          drop.keep_pair(bh, i == 0 ? r0 : r1, n0 + nb * 8 + t * 2, kp);
+          s[nb][2 * i] = kp[0] ? s[nb][2 * i] * drop.scale : 0.f;
+          s[nb][2 * i + 1] = kp[1] ? s[nb][2 * i + 1] * drop.scale : 0.f;
+        }
+    }
 #pragma unroll
     for (int j = 0; j < kDb; ++j) {
       acc[j][0] *= alpha[0];
@@ -395,62 +425,81 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <int D>
+template <int D, bool kDrop>
 int launch_fp32(const void* q, const void* k, const void* v,
                 const float* bias, void* o, float* lse, int b, int h, int sq,
                 int skv, long long bias_sb, long long bias_sh,
                 long long bias_sq, float sm_scale, int causal,
-                cudaStream_t stream) {
+                pfx::Dropout drop, cudaStream_t stream) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, b * h);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<D, kDrop><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<float*>(o), lse, h, sq,
-      skv, bias_sb, bias_sh, bias_sq, sm_scale, causal);
+      skv, bias_sb, bias_sh, bias_sq, sm_scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kDrop>
 int launch_mma(const void* q, const void* k, const void* v, const float* bias,
                void* o, float* lse, int b, int h, int sq, int skv,
                long long bias_sb, long long bias_sh, long long bias_sq,
-               float sm_scale, int causal, cudaStream_t stream) {
+               float sm_scale, int causal, pfx::Dropout drop,
+               cudaStream_t stream) {
   const dim3 grid((sq + kBlockM - 1) / kBlockM, b * h);
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
+  flash_fwd_mma_kernel<D, kDrop><<<grid, kMmaThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), bias,
       static_cast<__nv_bfloat16*>(o), lse, h, sq, skv, bias_sb, bias_sh,
-      bias_sq, sm_scale, causal);
+      bias_sq, sm_scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDrop>
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           void* o, float* lse, int b, int h, int sq, int skv, int d,
+           long long sb, long long sh, long long sqs, float sm_scale,
+           int causal, int is_bf16, pfx::Dropout drop, cudaStream_t st) {
+  if (is_bf16) {
+    if (d == 64)
+      return launch_mma<64, kDrop>(q, k, v, bias, o, lse, b, h, sq, skv, sb,
+                                   sh, sqs, sm_scale, causal, drop, st);
+    if (d == 128)
+      return launch_mma<128, kDrop>(q, k, v, bias, o, lse, b, h, sq, skv, sb,
+                                    sh, sqs, sm_scale, causal, drop, st);
+  } else {
+    if (d == 64)
+      return launch_fp32<64, kDrop>(q, k, v, bias, o, lse, b, h, sq, skv, sb,
+                                    sh, sqs, sm_scale, causal, drop, st);
+    if (d == 128)
+      return launch_fp32<128, kDrop>(q, k, v, bias, o, lse, b, h, sq, skv,
+                                     sb, sh, sqs, sm_scale, causal, drop, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Returns a cudaError_t: 0 on a successful launch. The kernel runs on
 // `stream` and does not synchronise; the caller allocates o and lse.
+// `dropout` != 0 drops probabilities with the Philox mask of `seed`
+// (keep iff bits < keep_threshold, kept ones scaled by keep_scale).
 extern "C" int pfx_flash_fwd(const void* q, const void* k, const void* v,
                              const float* bias, void* o, float* lse, int b,
                              int h, int sq, int skv, int d, long long bias_sb,
                              long long bias_sh, long long bias_sq,
                              float sm_scale, int causal, int is_bf16,
+                             int dropout, unsigned int keep_threshold,
+                             float keep_scale, unsigned long long seed,
                              void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0 || skv <= 0 || b * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 64)
-      return launch_mma<64>(q, k, v, bias, o, lse, b, h, sq, skv, bias_sb,
-                            bias_sh, bias_sq, sm_scale, causal, st);
-    if (d == 128)
-      return launch_mma<128>(q, k, v, bias, o, lse, b, h, sq, skv, bias_sb,
-                             bias_sh, bias_sq, sm_scale, causal, st);
-  } else {
-    if (d == 64)
-      return launch_fp32<64>(q, k, v, bias, o, lse, b, h, sq, skv, bias_sb,
-                             bias_sh, bias_sq, sm_scale, causal, st);
-    if (d == 128)
-      return launch_fp32<128>(q, k, v, bias, o, lse, b, h, sq, skv, bias_sb,
-                              bias_sh, bias_sq, sm_scale, causal, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const pfx::Dropout drop = pfx::make_dropout(seed, keep_threshold,
+                                              keep_scale);
+  if (dropout)
+    return launch<true>(q, k, v, bias, o, lse, b, h, sq, skv, d, bias_sb,
+                        bias_sh, bias_sq, sm_scale, causal, is_bf16, drop, st);
+  return launch<false>(q, k, v, bias, o, lse, b, h, sq, skv, d, bias_sb,
+                       bias_sh, bias_sq, sm_scale, causal, is_bf16, drop, st);
 }

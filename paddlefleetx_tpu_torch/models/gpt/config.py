@@ -6,9 +6,13 @@ YAML ``Model`` section builds either model. The knobs whose code paths
 this port does not have yet raise ``NotImplementedError`` at
 construction instead of being ignored: paged KV (``kv_page_size``,
 ``kv_pool_pages``), the int8 KV cache, weight-only int8 execution,
-LoRA, MoE and context parallelism. Training-only knobs (recompute,
-loss chunks, pipeline schedule, collective matmul) are accepted and
-validated; they have no effect on the serving path this port runs.
+LoRA, MoE and context parallelism. The training knobs act on the
+training path (``model.py``): ``use_recompute`` and all four
+``recompute_granularity`` values, ``loss_chunks`` and the two dropout
+probabilities. The model-parallel knobs (pipeline schedule, virtual
+pipeline degree, collective matmul, sequence parallelism) are
+validated here and only matter across devices, which the engine
+refuses for now (``core/engine.py``).
 """
 
 from __future__ import annotations

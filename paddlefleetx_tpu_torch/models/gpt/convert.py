@@ -22,6 +22,12 @@ The decoder stack comes either unrolled (``decoder_{i}`` subtrees) or
 scanned (one ``decoder`` subtree whose leaves lead with the layer
 axis); both read, and the inverse writes the layout
 ``cfg.scan_layers`` names.
+
+A training checkpoint of the port (``core/checkpoint.py``) stores the
+fp32 master weights as this ``state_dict``, under the same names, so
+:func:`flax_from_torch_state_dict` reads it into the JAX layout too; the
+same function maps the port's gradients (``{name: p.grad}``) onto the
+JAX ``params`` tree, for a leaf-by-leaf comparison with ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -154,3 +160,4 @@ def _stack_leaves(trees):
     if isinstance(first, Mapping):
         return {k: _stack_leaves([t[k] for t in trees]) for k in first}
     return np.stack(trees)
+

@@ -6,7 +6,13 @@ dot_product_attention``, with its counter names
 
 - ``use_flash`` and fresh ``[b, s, h, d]`` keys (training forward and
   the port's prefill) -> kernel 1, :func:`ops.cuda.flash_attention.
-  flash_attention` (``attention/flash``);
+  flash_attention` (``attention/flash``), whose gradient runs kernels 3
+  and 4; with a dropout rate > 0 (training) the same kernel drops
+  probabilities in-kernel (``attention/flash_dropout``). The JAX
+  package gates in-kernel dropout behind a per-TPU certificate file
+  (its ``ops/attention.py:32-120``); the port has no gate: the chip
+  smoke run checks the kernel's mask against the plain version on
+  every run, so training always takes the kernel with dropout;
 - ``use_flash`` and one query token against the ``[b, h, S, d]`` KV
   cache -> kernel 2: per-row offsets (a ``[b]`` tensor, the serving
   tick) take ``flash_decode_ragged`` (``attention/flash_decode_ragged``),
@@ -14,7 +20,9 @@ dot_product_attention``, with its counter names
   takes ``flash_decode`` (``attention/flash_decode``);
 - ``use_flash=False`` -> the dense PyTorch path below
   (``attention/fallback/flash_disabled`` + ``attention/dense``), as the
-  JAX package does. That is a configuration choice: the port never
+  JAX package does; it drops probabilities with the same Philox mask
+  as the kernel (``ops/cuda/philox.py``), so both paths compare. That
+  is a configuration choice: the port never
   takes the dense path because a kernel refused or failed, and
   attention shapes the kernels do not take (a multi-token window
   against the cache) raise ``NotImplementedError``.
@@ -33,6 +41,7 @@ import torch
 
 from ..observability import metrics
 from .cuda import flash_attention as fa
+from .cuda import philox
 
 #: score fill of the dense path (the JAX dense path's value)
 NEG_INF = -1e9
@@ -41,11 +50,14 @@ NEG_INF = -1e9
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, causal: bool = True,
                     query_offset: Union[int, torch.Tensor] = 0,
-                    kv_cache_layout: bool = False) -> torch.Tensor:
+                    kv_cache_layout: bool = False,
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Attention that materializes the ``[b, h, sq, sk]`` scores, in
     the order of the JAX dense path (``_xla_attention``): scale q,
     scores in fp32, causal mask against ``i + query_offset`` (an int
     or a ``[b]`` tensor of per-row offsets), additive bias, softmax,
+    dropout with the kernels' Philox mask of ``dropout_seed``,
     probabilities cast to v's dtype."""
     head_dim = q.shape[-1]
     kk = k if kv_cache_layout else k.permute(0, 2, 1, 3)   # [b, h, sk, d]
@@ -63,8 +75,14 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(live, scores, torch.full_like(scores, NEG_INF))
     if bias is not None:
         scores = scores + bias.float()
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(weights, vv).permute(0, 2, 1, 3)
+    weights = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0:
+        b, h, sq, sk = weights.shape
+        keep = philox.attention_keep_mask(dropout_seed, dropout_rate, b, h,
+                                          sq, sk, weights.device)
+        weights = torch.where(keep, weights * philox.keep_scale(
+            dropout_rate), torch.zeros_like(weights))
+    return torch.matmul(weights.to(v.dtype), vv).permute(0, 2, 1, 3)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,7 +90,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
                           query_offset: Union[int, torch.Tensor] = 0,
                           use_flash: bool = True,
-                          kv_cache_layout: bool = False) -> torch.Tensor:
+                          kv_cache_layout: bool = False,
+                          dropout_rate: float = 0.0,
+                          dropout_seed: Optional[int] = None
+                          ) -> torch.Tensor:
     """Causal attention through the port's kernels (see the module
     docstring for the dispatch and its counters).
 
@@ -89,6 +110,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             offsets (ragged decode).
         use_flash (bool): the config's ``use_flash_attention``.
         kv_cache_layout (bool): k/v are the KV cache.
+        dropout_rate (float): attention-probability dropout (training
+            only: callers pass 0 in eval and generation).
+        dropout_seed (int): the seed of the dropout mask.
 
     Returns:
         ``[b, sq, h, d]`` in q's dtype.
@@ -97,9 +121,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         metrics.inc("attention/fallback/flash_disabled")
         metrics.inc("attention/dense")
         return dense_attention(q, k, v, bias, causal, query_offset,
-                               kv_cache_layout)
+                               kv_cache_layout, dropout_rate, dropout_seed)
     ragged = torch.is_tensor(query_offset) and query_offset.dim() == 1
     if kv_cache_layout:
+        if dropout_rate > 0.0:
+            raise NotImplementedError(
+                "attention dropout is a training feature; the decode "
+                "kernel takes none")
         if not causal or q.shape[1] != 1:
             raise NotImplementedError(
                 "the port's decode kernel takes one causal query token "
@@ -118,6 +146,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "the flash forward kernel attends from query offset 0; "
             "offset queries go through the KV cache")
-    metrics.inc("attention/flash")
-    out, _ = fa.flash_attention(q, k, v, causal=causal, bias=bias)
+    if dropout_rate > 0.0:
+        metrics.inc("attention/flash_dropout")
+    else:
+        metrics.inc("attention/flash")
+    out, _ = fa.flash_attention(q, k, v, causal=causal, bias=bias,
+                                dropout_rate=dropout_rate,
+                                seed=dropout_seed)
     return out

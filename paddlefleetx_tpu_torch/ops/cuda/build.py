@@ -35,14 +35,22 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
 _F = ctypes.c_float
+#: dropout arguments: on/off, keep threshold, keep scale, seed
+_DROP = [_I, _U, _F, _ULL]
 #: the C signatures of csrc/*.cu (every pointer and the stream as void*)
 SIGNATURES = {
     "pfx_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _LL, _LL, _LL, _F, _I, _I, _P],
+                      _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
     "pfx_flash_decode": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F,
                          _I, _P],
+    "pfx_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
+    "pfx_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

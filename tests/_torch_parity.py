@@ -84,3 +84,16 @@ def jax_counters():
 def rng(seed: int) -> np.random.Generator:
     """The numpy generator every test draws its inputs from."""
     return np.random.default_rng(seed)
+
+
+@contextmanager
+def one_thread():
+    """One intra-op thread for the block: a test that compares two runs
+    bit for bit must not let the CPU's thread count (which a loaded
+    machine may vary) change how a sum is split."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

@@ -54,3 +54,34 @@ def test_module_takes_seed_or_state_dict():
     assert a.model.word_embeddings.dtype == torch.bfloat16   # recipe: bf16
     assert a.generation_cfg.eos_token_id == a.tokenizer.eos_token_id
     assert a.generate(["abc", "de"]) == b.generate(["abc", "de"])
+
+
+def test_train_main_runs_on_a_synthetic_corpus(tmp_path):
+    """``train`` on the 345M pretraining recipe cut to a tiny size, on
+    the CPU; it saves, and a second call resumes from the checkpoint."""
+    from paddlefleetx_tpu_torch.data.synthetic import write_corpus
+    write_corpus(str(tmp_path / "data"), 300, 20000, seed=2)
+    cfg = os.path.join(ROOT, "configs", "nlp", "gpt",
+                       "pretrain_gpt_345M_single_card.yaml")
+    over = ["Model.num_layers=2", "Model.hidden_size=128",
+            "Model.num_attention_heads=2", "Model.ffn_hidden_size=256",
+            "Model.vocab_size=300", "Model.max_position_embeddings=64",
+            "Global.local_batch_size=2", "Global.micro_batch_size=2",
+            "Engine.max_steps=2", "Engine.eval_freq=2", "Engine.eval_iters=1",
+            "Engine.save_load.save_steps=1",
+            f"Engine.save_load.output_dir={tmp_path / 'out'}"]
+    for mode in ("Train", "Eval"):
+        over += [f"Data.{mode}.dataset.input_dir={tmp_path / 'data'}",
+                 f"Data.{mode}.dataset.max_seq_len=64",
+                 f"Data.{mode}.dataset.eos_id=299"]
+    argv = ["-c", cfg, "--device", "cpu"]
+    for o in over:
+        argv += ["-o", o]
+    engine = cli.train_main(argv)
+    assert engine.step == 2 and len(engine.history) == 2
+    assert engine.module.model_config.dtype == "bfloat16"   # the recipe
+    assert engine.model.word_embeddings.dtype == torch.float32
+    resumed = cli.train_main(argv + [
+        "-o", f"Engine.save_load.ckpt_dir={tmp_path / 'out'}",
+        "-o", "Engine.max_steps=3"])
+    assert resumed.step == 3 and len(resumed.history) == 1

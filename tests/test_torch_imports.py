@@ -94,9 +94,22 @@ def test_entry_points_raise_instead_of_running_on_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPTGenerationModule(get_config(CONFIG, [o for o in tiny
                                                 if o != "-o"]))
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTModule
+    train_cfg = os.path.join(ROOT, "configs", "nlp", "gpt",
+                             "pretrain_gpt_345M_single_card.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.train_main(["-c", train_cfg, *tiny])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTModule(get_config(train_cfg, [o for o in tiny if o != "-o"]))
+    cfg = get_config(train_cfg, [o for o in tiny if o != "-o"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, GPTModule(cfg, device="cpu"))
 
 
 def test_cli_main_usage():
     from paddlefleetx_tpu_torch import cli
     assert cli.main([]) == 2
-    assert cli.main(["train"]) == 2
+    assert cli.main(["export"]) == 2
+    with pytest.raises(SystemExit):   # train needs -c <yaml>
+        cli.main(["train"])
