@@ -26,8 +26,19 @@ counts reset just before and read just after, one profiled training
 step, fp32 gradients and two steps through the kernels against the
 dense path from non-uniform attention (and refused with dQ planted
 wrong), and a
-save / resume through the ``train`` entry point. Each phase prints one
-JSON object per line;
+save / resume through the ``train`` entry point. Then paged and
+speculative serving: kernels 5, 6a and 6b (verify, paged decode, paged
+verify) against their plain versions and exactly against kernel 2 / 5
+at the serving shapes (shuffled page table, shared pages, garbage in
+the null page), the JAX package's headline serving trace (16 slots,
+65-page pool, 32 requests) through the paged server, then with n-gram
+speculation paged and contiguous, the counts zeroed just before each
+measured run and read just after; a profile of the paged plain and
+speculative ticks; the ``serve`` entry point with the recipe's paging
+and speculation knobs; and fp32 greedy rows equal across the paged,
+paged speculative, contiguous speculative and contiguous servers and
+the lockstep ``generate()``, also with a pool small enough to preempt.
+Each phase prints one JSON object per line;
 the ``kernels`` line and the card's name and power limit come before
 the last line, which is ``{"ok": true, "device": {...}}``. Any failure
 raises, so the exit code is non-zero and the last line is not printed.
@@ -89,13 +100,19 @@ def emit(obj) -> None:
 def kernel_events(prof, label):
     """The device kernel events (``ts``, ``dur`` in us, ``name``) of a
     finished ``torch.profiler`` run, read from its Chrome trace, which
-    is written to ``chiprun_out/chip_smoke/trace_<label>.json``."""
+    is kept gzipped as ``trace_<label>.json.gz`` in ``OUT_DIR`` (the
+    windows' raw traces together run to tens of MiB)."""
+    import gzip
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, f"trace_{label}.json")
     prof.export_chrome_trace(path)
-    with open(path) as f:
-        return [e for e in json.load(f).get("traceEvents", [])
-                if e.get("cat") == "kernel" and "dur" in e]
+    with open(path, "rb") as f:
+        raw = f.read()
+    os.remove(path)
+    with gzip.open(path + ".gz", "wb") as f:
+        f.write(raw)
+    return [e for e in json.loads(raw).get("traceEvents", [])
+            if e.get("cat") == "kernel" and "dur" in e]
 
 
 #: spin lengths (GPU clock cycles, ~5 ms and up at H100 clocks) that
@@ -415,6 +432,212 @@ def phase_kernels():
     return fwd, dec
 
 
+# -- kernels 5, 6a, 6b: verify, paged decode, paged verify --------------
+
+#: the serving path's decode shapes: 345M heads and head_dim, page 128,
+#: capacity 1024 (8 pages a row), 16 slots at ragged offsets
+PAGED_SHAPE = {"h": 16, "d": 64, "page": 128, "max_pages": 8}
+PAGED_OFFSETS = [5, 1000, 127, 128, 300, 511, 640, 17, 900, 255, 256, 999,
+                 42, 770, 384, 63]
+#: the planted garbage in the null page 0: a kernel that read a null
+#: entry (past a row's live length) would see scores ~30x the others
+NULL_GARBAGE = 30.0
+
+
+def _paged_table(np, offsets, window, page, max_pages, seed):
+    """``(page_table [b, max_pages] int32, pool pages)``: each row's
+    live pages (up to its last window query) on shuffled physical ids,
+    pairs of rows sharing their first page (prefix sharing), the null
+    page 0 past each row's live length."""
+    rng = np.random.default_rng(seed)
+    cap = page * max_pages
+    live = [min(o + window - 1, cap - 1) // page + 1 for o in offsets]
+    pages = 1 + sum(live)
+    ids = rng.permutation(np.arange(1, pages))
+    pt = np.zeros((len(offsets), max_pages), np.int32)
+    n = 0
+    for i, m in enumerate(live):
+        pt[i, :m] = ids[n:n + m]
+        n += m
+    for i in range(1, len(offsets), 2):
+        pt[i, 0] = pt[i - 1, 0]
+    return pt, pages
+
+
+def _paged_bound(offsets, window, h, d, cap, itemsize, max_pages):
+    """(bound_ms, bound_by) of one decode-kernel call: the bytes each
+    row's live K and V rows (up to its last query) take, read once for
+    all queries, plus q, O, the offsets and the page table (when
+    ``max_pages``), over HBM; against 4 d FLOPs per live (query, key)
+    pair over the peak for the type."""
+    b = len(offsets)
+    keys = sum(min(o + window, cap) for o in offsets)
+    pairs = sum(min(o + j + 1, cap) for o in offsets for j in range(window))
+    nbytes = 2 * h * d * itemsize * keys + 2 * b * window * h * d * itemsize \
+        + 4 * b + 4 * b * max_pages
+    flops = 4.0 * h * d * pairs
+    peak = BF16_TENSOR_FLOPS if itemsize == 2 else FP32_CUDA_CORE_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def decode_window_case(fa, torch, kind, dtype, window, seed,
+                       offsets=PAGED_OFFSETS, n_sets=4, device="cuda"):
+    """One case of kernel 5 (``kind`` "verify"), 6a ("paged", window 1)
+    or 6b ("paged_verify") at the serving shapes: held to its plain
+    version (fp32, same inputs) by max abs error and normwise, held
+    EXACTLY (max abs error 0) to kernel 2 or 5 as the design promises -
+    the paged kernels against the contiguous ones on the gathered cache,
+    each verify query ``j`` against kernel 2 at offset ``off + j`` -
+    and timed with its plain version, SDPA with a boolean mask over an
+    already gathered contiguous cache (the gather not counted), and its
+    bound. Returns the record. On the CPU (``device``, the tests'
+    rehearsal) the wrappers run their plain versions, nothing is timed
+    and the times are None."""
+    import numpy as np
+    import torch.nn.functional as F
+    sh = PAGED_SHAPE
+    h, d, page, max_pages = sh["h"], sh["d"], sh["page"], sh["max_pages"]
+    cap = page * max_pages
+    b = len(offsets)
+    paged = kind != "verify"
+    g = torch.Generator(device=device).manual_seed(seed)
+    off = torch.tensor(offsets, dtype=torch.int32, device=device)
+    pt_np, pages = _paged_table(np, offsets, window, page, max_pages, seed)
+    pt = torch.as_tensor(pt_np, device=device)
+    sets = []
+    for _ in range(n_sets):
+        q = torch.randn((b, window, h, d), generator=g,
+                        device=device).to(dtype)
+        shape = (pages, h, page, d) if paged else (b, h, cap, d)
+        k, v = (torch.randn(shape, generator=g, device=device).to(dtype)
+                for _ in range(2))
+        if paged:
+            k[0] = NULL_GARBAGE
+            v[0] = NULL_GARBAGE
+        sets.append((q, k, v))
+
+    def kernel(i):
+        q, k, v = sets[i]
+        if kind == "paged":
+            return fa.flash_decode_paged(q, k, v, off, pt)
+        if kind == "paged_verify":
+            return fa.flash_decode_paged_verify(q, k, v, off, pt)
+        return fa.flash_decode_verify(q, k, v, off)
+
+    def contiguous(i):
+        q, k, v = sets[i]
+        if paged:
+            return fa.gather_kv_pages(k, pt), fa.gather_kv_pages(v, pt)
+        return k, v
+
+    def plain(i, upcast=False):
+        q, k, v = (t.float() if upcast else t for t in sets[i])
+        if paged:
+            return fa.flash_decode_paged_reference(q, k, v, off, pt)
+        return fa.flash_decode_reference(q, k, v, off)
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    out = kernel(0)
+    sync()
+    ref = plain(0, upcast=True)
+    err = _max_err(out, ref)
+    tol = TOL[_dtype_name(dtype)]
+    what = f"{kind} ({dtype}, window {window})"
+    if not torch.isfinite(out.float()).all() or err > tol:
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"max abs err {err:.3e} > {tol:.0e}")
+    rel_l2, planted = _hold_normwise(out, ref, what)
+    # the exact checks of the design: kernel 2 or 5 on the contiguous
+    # (gathered) cache, or W launches of kernel 2 (a window decoded
+    # query by query, its per-query inputs and offsets made once here);
+    # ``cat`` joins the per-query outputs for the check, timing leaves
+    # it out
+    q_split = [[st[0][:, j:j + 1].contiguous() for j in range(window)]
+               for st in sets]
+    off_j = [off + j for j in range(window)]
+
+    def counterpart(i, cat=True, kv=None):
+        q, _, _ = sets[i]
+        kc, vc = kv or contiguous(i)
+        if kind == "verify":
+            outs = [fa.flash_decode_ragged(qj, kc, vc, oj)
+                    for qj, oj in zip(q_split[i], off_j)]
+            return torch.cat(outs, dim=1) if cat else outs
+        if kind == "paged":
+            return fa.flash_decode_ragged(q, kc, vc, off)
+        return fa.flash_decode_verify(q, kc, vc, off)
+
+    exact_vs = {"verify": "kernel 2 at offset off + j, per query j",
+                "paged": "kernel 2 on the gathered cache",
+                "paged_verify": "kernel 5 on the gathered cache"}[kind]
+    q = sets[0][0]
+    same = counterpart(0)
+    sync()
+    exact_err = _max_err(out, same)
+    if exact_err != 0.0:
+        raise AssertionError(f"{what} differs from {exact_vs} by "
+                             f"{exact_err:.3e}; the design makes them equal")
+    ms = call_ms = plain_ms = library_ms = counterpart_ms = None
+    if device != "cpu":
+        ms, call_ms = time_ms(kernel, n_sets)
+        plain_ms, _ = time_ms(plain, n_sets, iters=5)
+        # the counterpart's time, the paged ones' gather not counted:
+        # kernel 2 or 5 on the same live lengths, or W launches of
+        # kernel 2 (a window decoded query by query)
+        csets = [contiguous(i) for i in range(n_sets)]
+        counterpart_ms, _ = time_ms(lambda i: counterpart(
+            i, cat=False, kv=csets[i]), n_sets)
+        pos = torch.arange(cap, device=device)
+        live = (pos[None, None, :] <= off[:, None, None] +
+                torch.arange(window, device=device)[None, :, None])[:, None]
+        lsets = [(st[0].transpose(1, 2), *contiguous(i))
+                 for i, st in enumerate(sets)]
+        library_ms, _ = time_ms(lambda i: F.scaled_dot_product_attention(
+            *lsets[i], attn_mask=live), n_sets)
+    bound_ms, bound_by = _paged_bound(offsets, window, h, d, cap,
+                                      q.element_size(),
+                                      max_pages if paged else 0)
+    return {"kind": kind, "dtype": _dtype_name(dtype), "b": b, "h": h,
+            "d": d, "window": window, "capacity": cap,
+            "page": page if paged else None, "pool_pages":
+            pages if paged else None, "offsets": list(offsets),
+            "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
+            "rel_l2_planted": planted, "exact_vs": exact_vs,
+            "exact_max_abs_err": exact_err, "ms": ms, "call_ms": call_ms,
+            "counterpart_ms": counterpart_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_computes": "SDPA, boolean mask, on the contiguous "
+            "cache (the gather not counted)",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_decode_kernels(device="cuda"):
+    """Kernels 6a, 5 and 6b against their plain versions and exactly
+    against kernel 2 / 5, bf16 and fp32, windows 2, 5 and 32; returns
+    ``{phase: cases}``, each list led by the serving path's case (bf16;
+    window 5, the spec path's 4 drafts + 1, for the verify kernels)."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    out = {"kernel_paged": [], "kernel_verify": [],
+           "kernel_paged_verify": []}
+    seed = 500
+    for dtype in (torch.bfloat16, torch.float32):
+        out["kernel_paged"].append(decode_window_case(
+            fa, torch, "paged", dtype, 1, seed, device=device))
+        seed += 1
+        for window in (5, 2, 32):
+            for phase, kind in (("kernel_verify", "verify"),
+                                ("kernel_paged_verify", "paged_verify")):
+                out[phase].append(decode_window_case(
+                    fa, torch, kind, dtype, window, seed, device=device))
+                seed += 1
+    for phase, cases in out.items():
+        for c in cases:
+            emit({"phase": phase, **c})
+    return out
+
+
 # -- kernel 1 with dropout; kernels 3 and 4: the backward ---------------
 
 
@@ -684,6 +907,9 @@ def reset_counts():
     from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
     fa.flash_attention.launches = 0
     fa.flash_decode.launches = 0
+    fa.flash_decode_verify.launches = 0
+    fa.flash_decode_paged.launches = 0
+    fa.flash_decode_paged_verify.launches = 0
     fa.flash_attention_backward.launches_dkv = 0
     fa.flash_attention_backward.launches_dq = 0
     metrics.set_enabled(True)
@@ -698,6 +924,10 @@ def read_counts() -> dict:
     counters = metrics.get_registry().snapshot()["counters"]
     return {"flash_attention": fa.flash_attention.launches,
             "flash_decode": fa.flash_decode.launches,
+            "flash_decode_verify": fa.flash_decode_verify.launches,
+            "flash_decode_paged": fa.flash_decode_paged.launches,
+            "flash_decode_paged_verify":
+            fa.flash_decode_paged_verify.launches,
             "flash_bwd_dkv": fa.flash_attention_backward.launches_dkv,
             "flash_bwd_dq": fa.flash_attention_backward.launches_dq,
             "counters": {k: v for k, v in sorted(counters.items())
@@ -793,7 +1023,7 @@ def phase_serve(device="cuda", overrides=(), requests=16, slots=8,
 
 
 #: kernel-name pieces that sort a device kernel into a category
-KERNEL_CATEGORIES = (("flash_decode", ("flash_decode_kernel",)),
+KERNEL_CATEGORIES = (("flash_decode", ("decode_kernel",)),
                      ("flash_attention", ("flash_fwd",)),
                      ("flash_backward", ("flash_bwd",)),
                      ("gemm", ("gemm", "nvjet", "splitkreduce", "cutlass",
@@ -869,15 +1099,21 @@ def phase_profile(module, slots=8, ticks=16):
     emit({"phase": "profile", "slots": slots, "windows": [admit, tick]})
 
 
-def phase_serve_cli(device="cuda", overrides=()):
+def phase_serve_cli(device="cuda", overrides=(), paged_spec=False):
     """The ``serve`` entry point as a user calls it, with the recipe's
     own sampling (top-k 50, top-p 0.75): 8 requests, ``max_dec_len``
     16, 4 slots; every request finishes and every admission and tick
-    went through the kernels."""
+    went through the kernels. With ``paged_spec`` the recipe's
+    ``Model.kv_page_size`` / ``kv_pool_pages`` and
+    ``Generation.spec_method`` knobs turn on the paged, speculative
+    server (every tick the paged verify kernel)."""
     from paddlefleetx_tpu_torch import cli
     from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
     from paddlefleetx_tpu_torch.utils.config import get_config
-    over = ["Generation.max_dec_len=16", *overrides]
+    knobs = [f"Model.kv_page_size={HEADLINE['page']}",
+             f"Model.kv_pool_pages={HEADLINE['pool_pages']}",
+             "Generation.spec_method=ngram"] if paged_spec else []
+    over = ["Generation.max_dec_len=16", *knobs, *overrides]
     argv = ["-c", CONFIG, "--requests", "8", "--slots", "4",
             "--max-prompt-len", "300"]
     if device != "cuda":
@@ -887,16 +1123,25 @@ def phase_serve_cli(device="cuda", overrides=()):
     reset_counts()
     summary = cli.serve_main(argv)
     counts = read_counts()
-    if summary["admitted"] != 8 or \
+    if summary["admitted"] < 8 or summary["evicted"] != 8 or \
             not set(summary["finish_reasons"]) <= {"eos", "length"}:
         raise AssertionError(f"serve entry point: {summary}")
     layers = GPTConfig.from_config(get_config(CONFIG, over)).num_layers
-    check_serve_counts(counts, summary, layers, "serve entry point")
-    emit({"phase": "serve_cli", "strategy": "sampling",
+    label = "serve_cli_paged_spec" if paged_spec else "serve_cli"
+    if paged_spec:
+        if not summary.get("paged") or "spec_accept_rate" not in summary:
+            raise AssertionError(f"{label}: the knobs did not reach the "
+                                 f"server: {summary}")
+        check_paged_counts(counts, summary, layers, label,
+                           "flash_decode_paged_verify")
+    else:
+        check_serve_counts(counts, summary, layers, label)
+    emit({"phase": label, "strategy": "sampling",
           "finish_reasons": summary["finish_reasons"],
           "decode_ticks": summary["decode_ticks"],
-          "launches": {"flash_attention": counts["flash_attention"],
-                       "flash_decode": counts["flash_decode"]}})
+          "launches": {k: counts[k] for k in (
+              "flash_attention", "flash_decode",
+              "flash_decode_paged_verify")}})
 
 
 def top2_gap(model, prompt, prefix):
@@ -1015,6 +1260,348 @@ def phase_generate_cli(device="cuda", overrides=()):
     if not isinstance(text, str):
         raise AssertionError(f"generate entry point returned {type(text)}")
     emit({"phase": "generate_cli", "chars": len(text)})
+
+
+# -- paged and speculative serving --------------------------------------
+
+#: the JAX package's headline serving trace (its bench.py, serving mode):
+#: 16 slots over a pool of 8 full-capacity slots' pages plus the null
+#: page, 32 requests with prompts of 16..384 tokens, 128 new tokens each,
+#: sampling with top-k 50 / top-p 0.75, EOS and pad the last vocab id
+HEADLINE = {"requests": 32, "slots": 16, "lo": 16, "hi": 384,
+            "max_dec_len": 128, "page": 128, "pool_pages": 65,
+            "prefill_chunk_pages": 2, "spec_tokens": 4, "seed": 0,
+            "contiguous_spec_slots": 8}
+
+
+def headline_prompts(vocab, requests, lo, hi, seed):
+    """The trace's prompts as the JAX package draws them: lengths
+    uniform in ``lo..hi``, then tokens uniform below ``vocab - 2``, from
+    ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, requests)
+    return [rng.integers(0, vocab - 2, int(n)).tolist() for n in lengths]
+
+
+def serving_module(device, overrides):
+    """``GPTGenerationModule`` on the generation recipe with the
+    trace's generation knobs (EOS / pad the last vocab id, as the JAX
+    trace sets them) and ``overrides``."""
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTGenerationModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    cfg = get_config(CONFIG, list(overrides))
+    last = int(cfg.Model.vocab_size) - 1
+    over = [f"Generation.eos_token_id={last}",
+            f"Generation.pad_token_id={last}", "Generation.min_dec_len=0",
+            *overrides]
+    return GPTGenerationModule(get_config(CONFIG, over), device=device)
+
+
+def _fallbacks(counters, allowed=()):
+    """The ``attention/fallback/*`` counters other than ``allowed``."""
+    return {k: v for k, v in counters.items()
+            if k.startswith("attention/fallback/") and k not in allowed}
+
+
+def check_paged_counts(counts, summary, layers, label, kernel):
+    """Every tick was one launch of ``kernel`` (6a, 6b or 5) per layer
+    and nothing else decoded; a paged server's prefill chunks took the
+    gather + dense route once per layer each (the JAX package's route),
+    a contiguous one's admissions kernel 1; no other fallback fired."""
+    c = counts["counters"]
+    ticks = summary["decode_ticks"] * layers
+    others = {"flash_decode", "flash_decode_verify", "flash_decode_paged",
+              "flash_decode_paged_verify"} - {kernel}
+    if counts[kernel] != ticks or ticks == 0 or \
+            any(counts[k] for k in others):
+        raise AssertionError(f"{label}: {kernel} launched {counts[kernel]} "
+                             f"times for {ticks} layer-ticks (> 0), others "
+                             f"{ {k: counts[k] for k in others} }")
+    if summary.get("paged"):
+        chunks = summary["prefill_chunks"] * layers
+        allowed = ("attention/fallback/kv_cache_layout",)
+        if c.get("attention/dense", 0) != chunks or \
+                c.get("attention/fallback/kv_cache_layout", 0) != chunks or \
+                counts["flash_attention"] != 0:
+            raise AssertionError(f"{label}: dense {c.get('attention/dense')} "
+                                 f"and kv_cache_layout fallbacks for {chunks} "
+                                 f"chunk-layers; kernel 1 "
+                                 f"{counts['flash_attention']}")
+    else:
+        allowed = ()
+        if counts["flash_attention"] != summary["admitted"] * layers or \
+                c.get("attention/dense", 0) != 0:
+            raise AssertionError(f"{label}: kernel 1 {counts} for "
+                                 f"{summary['admitted']} admissions")
+    bad = _fallbacks(c, allowed)
+    if bad:
+        raise AssertionError(f"{label}: fallback counters {bad}")
+
+
+def serve_trace(module, label, device, spec=False, paged=True, slots=None):
+    """The headline trace twice on fresh servers, warm then measured
+    (the counts zeroed just before the measured ``run``, read just
+    after); checks that every request finished with in-vocab tokens and
+    that the drained pool is whole. Returns the measured record."""
+    import dataclasses
+    import torch
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    hl = HEADLINE
+    cfg = module.model_config
+    gcfg = module.generation_cfg
+    if spec:
+        gcfg = dataclasses.replace(gcfg, spec_method="ngram",
+                                   spec_tokens=hl["spec_tokens"])
+    slots = slots or hl["slots"]
+    kw = dict(page_size=hl["page"], pool_pages=hl["pool_pages"],
+              prefill_chunk_pages=hl["prefill_chunk_pages"]) if paged else {}
+    prompts = headline_prompts(cfg.vocab_size, hl["requests"], hl["lo"],
+                               hl["hi"], hl["seed"])
+    GenerationServer(module.model, gcfg, num_slots=slots, seed=module.seed,
+                     **kw).run(prompts)
+    server = GenerationServer(module.model, gcfg, num_slots=slots,
+                              seed=module.seed, **kw)
+    reset_counts()
+    t0 = time.perf_counter()
+    completions = server.run(prompts)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    summary = server.summary()
+    reasons = [c.finish_reason for c in completions]
+    if len(completions) != len(prompts) or \
+            not set(reasons) <= {"eos", "length"}:
+        raise AssertionError(f"{label}: finish reasons {reasons}")
+    for c in completions:
+        if not c.tokens or not all(0 <= t < cfg.vocab_size
+                                   for t in c.tokens):
+            raise AssertionError(f"{label}: request {c.request_id} emitted "
+                                 f"{c.tokens}")
+    if paged:
+        server.check_alloc()
+        if summary["pages_in_use"] != 0:
+            raise AssertionError(f"{label}: {summary['pages_in_use']} pages "
+                                 f"still in use after the drain")
+    kernel = {(True, False): "flash_decode_paged",
+              (True, True): "flash_decode_paged_verify",
+              (False, True): "flash_decode_verify",
+              (False, False): "flash_decode"}[(paged, spec)]
+    check_paged_counts(counts, summary, cfg.num_layers, label, kernel)
+    generated = sum(len(c.tokens) for c in completions)
+    record = {
+        "phase": label, "model": "GPT-345M", "dtype": cfg.dtype,
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "paged": paged, "spec": spec, "slots": slots,
+        "requests": len(prompts), "trace": hl,
+        "generated_tokens": generated, "wall_s": wall,
+        "e2e_tokens_per_s": generated / wall,
+        "decode_tokens_per_s": summary["tokens_per_sec"],
+        "decode_tokens": summary["decode_tokens"],
+        "decode_ticks": summary["decode_ticks"],
+        "ttft_p50_ms": summary.get("ttft_p50_ms"),
+        "ttft_p99_ms": summary.get("ttft_p99_ms"),
+        "tick_p50_ms": summary.get("tick_p50_ms"),
+        "tick_p99_ms": summary.get("tick_p99_ms"),
+        "kernel": kernel, "launches": {kernel: counts[kernel],
+                                       "flash_attention":
+                                       counts["flash_attention"]},
+        "counters": counts["counters"]}
+    for key in ("prefill_chunks", "prefix_hits", "prompt_hits", "cow_splits",
+                "preempted", "pages_in_use", "pool_pages", "spec_drafted",
+                "spec_accepted", "spec_accept_rate"):
+        if key in summary:
+            record[key] = summary[key]
+    if device != "cpu":
+        record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(record)
+    return record
+
+
+def phase_serve_paged(device="cuda", overrides=()):
+    """The JAX package's headline serving trace at full width through
+    the paged server (GPT-345M, bf16, weights from ``Global.seed``),
+    the page size, pool and chunk given to the server as the JAX trace
+    gives them (``serve_cli_paged_spec`` turns paging on through the
+    recipe's ``Model.kv_page_size`` / ``kv_pool_pages`` instead)."""
+    module = serving_module(device, [
+        f"Generation.max_dec_len={HEADLINE['max_dec_len']}", *overrides])
+    return serve_trace(module, "serve_paged", device), module
+
+
+#: the most of its drafts ``serve_spec`` may accept. On the trace's
+#: random-token prompts the n-gram drafts are near-random tokens, which
+#: the sampling rule ``u < p(d)`` accepts with probability ``p(d)``,
+#: about 0 (0.00043 paged and 0.00080 contiguous on an H100); a rule
+#: turned round (``u > p(d)``) would accept nearly all of them
+SPEC_ACCEPT_LIMIT = 0.05
+
+
+def phase_serve_spec(module, device="cuda"):
+    """The same trace with n-gram speculation (4 drafts a tick), paged,
+    then on the contiguous cache with 8 slots; each run's accept rate
+    is held under ``SPEC_ACCEPT_LIMIT``."""
+    paged = serve_trace(module, "serve_spec", device, spec=True)
+    contiguous = serve_trace(module, "serve_spec", device, spec=True,
+                             paged=False,
+                             slots=HEADLINE["contiguous_spec_slots"])
+    for run in (paged, contiguous):
+        if not 0.0 <= run["spec_accept_rate"] <= SPEC_ACCEPT_LIMIT:
+            raise AssertionError(
+                f"serve_spec (paged {run['paged']}) accepted "
+                f"{run['spec_accept_rate']:.4f} of its drafts on random "
+                f"prompts, over the limit {SPEC_ACCEPT_LIMIT}: the accept "
+                f"rule is broken")
+    return paged, contiguous
+
+
+def phase_profile_paged(module, ticks=16):
+    """Where a paged tick's time goes, plain and speculative: the
+    headline server (16 slots, 65-page pool) fed its first 16 prompts
+    and stepped until every slot decodes, then ``ticks`` steps under
+    ``torch.profiler`` (kernel time by category, idle share)."""
+    import dataclasses
+    import torch
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    hl = HEADLINE
+    cfg = module.model_config
+    prompts = headline_prompts(cfg.vocab_size, hl["requests"], hl["lo"],
+                               hl["hi"], hl["seed"])[:hl["slots"]]
+    windows = []
+    for label, spec in (("decode_paged", False), ("verify_paged", True)):
+        gcfg = module.generation_cfg
+        if spec:
+            gcfg = dataclasses.replace(gcfg, spec_method="ngram",
+                                       spec_tokens=hl["spec_tokens"])
+        server = GenerationServer(
+            module.model, gcfg, num_slots=hl["slots"], seed=module.seed,
+            page_size=hl["page"], pool_pages=hl["pool_pages"],
+            prefill_chunk_pages=hl["prefill_chunk_pages"])
+        for p in prompts:
+            server.submit(p)
+        while server.pending or server._prefilling:
+            server.step()
+
+        def run():
+            for _ in range(ticks):
+                server.step()
+        windows.append(profile_window(torch, label, run, ticks))
+        windows[-1]["occupancy"] = server.occupancy
+    emit({"phase": "profile_paged", "slots": hl["slots"],
+          "windows": windows})
+
+
+def _first_divergence(got, want, eos):
+    """``(equal rows, first divergent position per row or None)``."""
+    pos = []
+    for g, w in zip(got, want):
+        g, w = _truncate(g, eos), _truncate(w, eos)
+        pos.append(None if g == w else next(
+            (j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+            min(len(g), len(w))))
+    return sum(p is None for p in pos), pos
+
+
+def parity_prompts(vocab, requests=4, prefix=256, seed=31):
+    """``requests`` prompts sharing a ``prefix``-token prefix (two full
+    pages, shared through the prefix registry), tails of 118..126 so
+    every request grows into its fourth page within a few tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab - 2, prefix).tolist()
+    return [head + rng.integers(0, vocab - 2, int(n)).tolist()
+            for n in rng.integers(118, 127, requests)]
+
+
+def phase_parity_paged(device="cuda", overrides=(), max_dec_len=48,
+                       small_pool=9):
+    """Greedy rows of five ways to serve the same prompts, at the 345M
+    width: the paged server spec off and on, the contiguous server spec
+    on and off, and lockstep ``generate()``. In fp32 they must be equal
+    (a mismatch only at a true near-tie), also with a pool so small that
+    requests are preempted (``small_pool``); in bf16 the share of equal
+    rows and the first divergent positions are printed, not held (the
+    verify forward's GEMMs have another M than the decode tick's)."""
+    import dataclasses
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.models.gpt.generation import (
+        generate, left_pad_batch,
+    )
+    hl = HEADLINE
+    records = []
+    for dtype_over in (["Engine.mix_precision.use_pure_fp16=False"], []):
+        module = serving_module(device, [
+            *dtype_over, "Generation.decode_strategy=greedy_search",
+            f"Generation.max_dec_len={max_dec_len}", *overrides])
+        cfg, gcfg, model = module.model_config, module.generation_cfg, \
+            module.model
+        prompts = parity_prompts(cfg.vocab_size)
+        ids, mask = left_pad_batch(prompts, gcfg.pad_token_id)
+        eos = gcfg.eos_token_id
+        lockstep = [_truncate(r, eos)
+                    for r in generate(model, ids, mask, gcfg).tolist()]
+        spec = dataclasses.replace(gcfg, spec_method="ngram",
+                                   spec_tokens=hl["spec_tokens"])
+        paged = dict(page_size=hl["page"],
+                     prefill_chunk_pages=hl["prefill_chunk_pages"])
+        runs = {"paged": (gcfg, paged), "paged_spec": (spec, paged),
+                "contiguous_spec": (spec, {}), "contiguous": (gcfg, {}),
+                "paged_preempted": (gcfg, dict(paged,
+                                               pool_pages=small_pool)),
+                "paged_spec_preempted": (spec, dict(paged,
+                                                    pool_pages=small_pool))}
+        rows, summaries = {}, {}
+        for name, (g, kw) in runs.items():
+            srv = GenerationServer(model, g, num_slots=len(prompts), **kw)
+            rows[name] = [c.tokens for c in srv.run(prompts)]
+            summaries[name] = srv.summary()
+            if srv.paged:
+                srv.check_alloc()
+                if summaries[name]["pages_in_use"]:
+                    raise AssertionError(f"parity_paged: {name} left pages "
+                                         f"in use")
+        for name in ("paged_preempted", "paged_spec_preempted"):
+            if summaries[name]["preempted"] == 0:
+                raise AssertionError(f"parity_paged: {name} with a "
+                                     f"{small_pool}-page pool preempted "
+                                     f"nothing")
+        record = {"phase": "parity_paged", "dtype": cfg.dtype,
+                  "requests": len(prompts),
+                  "prompt_lens": [len(p) for p in prompts],
+                  "max_dec_len": max_dec_len, "small_pool": small_pool,
+                  "counts": {n: {k: s.get(k) for k in (
+                      "prefill_chunks", "prefix_hits", "prompt_hits",
+                      "cow_splits", "preempted", "spec_accept_rate",
+                      "decode_ticks")} for n, s in summaries.items()}}
+        if cfg.dtype == "float32":
+            near = 0
+            for name, got in rows.items():
+                near += len(compare_rows(f"parity_paged_{name}", model,
+                                         prompts, got, lockstep, eos))
+            record["rows_equal"] = {n: _first_divergence(r, lockstep,
+                                                         eos)[0]
+                                    for n, r in rows.items()}
+            record["near_ties"] = near
+        else:
+            record["rows_equal_share"] = {
+                n: _first_divergence(r, lockstep, eos)[0] / len(prompts)
+                for n, r in rows.items()}
+            record["first_divergence"] = {
+                n: _first_divergence(r, lockstep, eos)[1]
+                for n, r in rows.items()}
+            # speculation and paging against their own plain layout
+            record["rows_equal_share_pairs"] = {
+                f"{a}~{b}": _first_divergence(rows[a], rows[b], eos)[0]
+                / len(prompts) for a, b in (
+                    ("paged_spec", "paged"),
+                    ("contiguous_spec", "contiguous"),
+                    ("paged", "contiguous"),
+                    ("paged_preempted", "paged"))}
+        emit(record)
+        records.append(record)
+        del module, model
+    return records
 
 
 # -- the training path --------------------------------------------------
@@ -1355,7 +1942,59 @@ def phase_train_cli(device="cuda", overrides=(), steps=4):
           "bit_exact": a == b, "tol_rel": 1e-3})
 
 
-def kernels_line(fwd, dec, serve, fwd_drop, bwd, train) -> dict:
+def decode_window_rows(window, serve_paged, spec) -> list:
+    """The kernels line's rows of kernels 6a, 5 and 6b: the serving
+    path's case (the first of each phase) with the worst errors over
+    all cases, the exact checks, and the launches of the main path each
+    runs on (``serve_paged``; ``serve_spec`` paged and contiguous),
+    counted from zero just before that path."""
+    spec_paged, spec_contig = spec
+    rows = []
+    for phase, name, replaces, launches in (
+            ("kernel_paged", "flash_decode_paged", "paddlefleetx_tpu/ops/"
+             "pallas/flash_attention.py:1422",
+             {"serve_paged": serve_paged["launches"]["flash_decode_paged"]}),
+            ("kernel_verify", "flash_decode_verify", "paddlefleetx_tpu/ops/"
+             "pallas/flash_attention.py:1140",
+             {"serve_spec_contiguous":
+              spec_contig["launches"]["flash_decode_verify"]}),
+            ("kernel_paged_verify", "flash_decode_paged_verify",
+             "paddlefleetx_tpu/ops/pallas/flash_attention.py:1433",
+             {"serve_spec_paged":
+              spec_paged["launches"]["flash_decode_paged_verify"]})):
+        cases = window[phase]
+        head = cases[0]
+        err = max(c["max_abs_err"] for c in cases)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddlefleetx_tpu_torch/csrc/flash_decode.cu",
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": err,
+            "max_err": err,
+            "tol": {c["dtype"]: c["tol"] for c in cases},
+            "max_rel_l2": max(c["rel_l2"] for c in cases),
+            "min_rel_l2_planted": min(c["rel_l2_planted"] for c in cases),
+            "tol_rel_l2": TOL_REL_L2,
+            "exact_vs": head["exact_vs"],
+            "exact_max_abs_err": max(c["exact_max_abs_err"] for c in cases),
+            "exact_vs_ms": head["counterpart_ms"],
+            "ms": head["ms"], "kernel_ms": head["ms"],
+            "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library_computes": head["library_computes"],
+            "shape": {k: head[k] for k in ("dtype", "b", "h", "d", "window",
+                                           "capacity", "page")},
+            "by_window": {f"{c['dtype']}_w{c['window']}": {
+                k: c[k] for k in ("ms", "counterpart_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by")}
+                for c in cases},
+            "cases": len(cases)})
+    return rows
+
+
+def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
+                 serve_paged=None, spec=None) -> dict:
     """The per-kernel record: each kernel's main-path shape (kernel 1:
     the serving case first, the training case beside it; kernels 3 and
     4: the recipe's bf16 case with dropout), the worst error over all
@@ -1443,6 +2082,8 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train) -> dict:
             "shape": {k: head[k] for k in ("regime", "dtype", "b", "h", "s",
                                            "d", "bias", "dropout")},
             "cases": len(bwd)})
+    if window is not None:
+        rows += decode_window_rows(window, serve_paged, spec)
     return {"kernels": rows}
 
 
@@ -1461,6 +2102,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build()
     fwd, dec = phase_kernels()
+    window = phase_decode_kernels()
     fwd_drop = phase_kernel1_dropout()
     bwd = phase_backward()
     torch.cuda.empty_cache()
@@ -1471,6 +2113,14 @@ def main() -> int:
     phase_parity()
     phase_generate_cli()
     torch.cuda.empty_cache()
+    serve_paged, module = phase_serve_paged()
+    spec = phase_serve_spec(module)
+    phase_profile_paged(module)
+    del module
+    phase_serve_cli(paged_spec=True)
+    torch.cuda.empty_cache()
+    phase_parity_paged()
+    torch.cuda.empty_cache()
     train, engine = phase_train()
     phase_train_profile(engine)
     del engine
@@ -1479,7 +2129,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_cli()
     print(card, flush=True)
-    emit(kernels_line(fwd, dec, serve, fwd_drop, bwd, train))
+    emit(kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window,
+                      serve_paged, spec))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

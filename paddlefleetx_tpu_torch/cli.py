@@ -20,7 +20,10 @@ prompts of seeded random tokens (lengths uniform in 5..``--max-prompt-
 len``, capped at the longest prompt the server admits beside
 ``max_dec_len``; seed ``Global.seed``) to a ``GenerationServer`` with
 ``--slots`` slots, runs it to completion and prints one JSON line per
-completion and a summary line. Both draw their weights from
+completion and a summary line; the recipe's ``Model.kv_page_size`` /
+``kv_pool_pages`` turn the paged server on and
+``Generation.spec_method`` / ``spec_tokens`` speculative decoding, as
+in the JAX package (no flag of their own). Both draw their weights from
 ``Global.seed`` (they load no checkpoint yet). All three run on the card
 unless ``--device cpu``.
 """

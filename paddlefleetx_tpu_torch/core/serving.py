@@ -1,30 +1,63 @@
 """Continuous-batching generation server (the port of the JAX package's
-``core/serving.py::GenerationServer``, contiguous mode).
+``core/serving.py::GenerationServer``).
 
-A persistent ``[slots, heads, capacity, head_dim]`` KV cache lives on
-the card; the host owns a request queue, admits each request into a
-free slot with a bucketed prefill (``prefill_into_slots``: powers of
-two from 16 up to the longest admissible prompt), ticks every occupied
-slot one token per :meth:`GenerationServer.step` (``decode_step``, the
-ragged decode kernel) and evicts finished slots between ticks, so new
-requests ride in as soon as a slot frees. Greedy completions equal the
-lockstep ``generate()`` rows, whatever the slot count, admission order
-or prompt-length mix.
+A persistent KV store lives on the card; the host owns a request queue,
+admits requests into free slots, ticks every active slot forward per
+:meth:`GenerationServer.step` and evicts finished slots between ticks,
+so new requests ride in as soon as a slot frees. Greedy completions
+equal the lockstep ``generate()`` rows, whatever the slot count,
+admission order, prompt-length mix, paging or speculation.
 
-Telemetry: the ``serving/admitted``, ``serving/evicted`` and
-``serving/decode_tokens`` counters, the ``serving/slot_occupancy``
-gauge and the ``serving/decode_tick`` timer in the process-global
-registry (names as in the JAX package's ``docs/inference.md``), and a
+Contiguous mode (the default): one ``[slots, heads, capacity,
+head_dim]`` cache, each admission one bucketed prefill
+(``prefill_into_slots``: powers of two from 16 up to the longest
+admissible prompt), each tick the ragged decode kernel.
+
+Paged mode (``page_size`` / ``pool_pages``, or a config with
+``kv_page_size`` / ``kv_pool_pages``): the KV store is one global pool
+of fixed-size pages reached through a slot -> page table
+(``core/paging.py``), as in the JAX package:
+
+- **density**: a slot holds only the pages its tokens fill; when the
+  pool runs dry the youngest other slot is preempted back to the queue
+  head (its tokens and sampling stream kept) and resumes token-exactly;
+- **prefix sharing**: full prompt pages are content-addressed (chain
+  hash), so requests sharing a prefix prefill it once and map the same
+  physical pages; an identical prompt admits with zero prefill through
+  the whole-prompt registry. Shared pages split copy-on-write at the
+  first divergent write;
+- **chunked prefill**: admissions run as page-aligned chunks, at most
+  one per ``step()``, between decode ticks (``prefill_chunk_paged``).
+  The decode tick is the paged decode kernel.
+
+Speculative decoding (``GenerationConfig.spec_method`` /
+``spec_tokens``): the tick drafts ``k`` tokens per slot from a host
+draft source (``core/spec.py``, n-gram self-speculation), scores the
+``[slots, k+1]`` window in ONE forward through the verify kernel
+(``verify_step``, contiguous or paged) and commits each slot's accepted
+prefix, 1..k+1 tokens; pages wholly past a slot's accepted point go
+straight back to the pool. Greedy speculative output is token-exact
+against the plain server.
+
+Telemetry: the ``serving/admitted``, ``serving/evicted``,
+``serving/preempted``, ``serving/prefix_hits``, ``serving/cow_splits``,
+``serving/prefill_chunks``, ``serving/decode_tokens`` (committed
+tokens, not ticks), ``serving/spec_drafted`` and
+``serving/spec_accepted`` counters, the ``serving/slot_occupancy``,
+``serving/pages_in_use`` and ``serving/spec_accept_rate`` gauges and
+the ``serving/decode_tick`` timer in the process-global registry (the
+JAX package's names, ``docs/inference.md``), and a
 :meth:`GenerationServer.summary` with decode tokens/s and TTFT
 percentiles. Not ported yet (asking for them raises
-``NotImplementedError``): paged KV and prefix sharing, chunked prefill,
-the host KV tier, speculative decoding, device-resident decode loops,
-LoRA adapters, deadlines, queue shedding, SIGTERM drain, fault
-injection and the event trace.
+``NotImplementedError``): the host KV tier (``host_pool_bytes``),
+device-resident decode loops (``device_loop_ticks > 1``), LoRA
+adapters, deadlines, queue shedding, SIGTERM drain, fault injection,
+KV export / import, the prefix store and the event trace.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -34,12 +67,18 @@ import numpy as np
 import torch
 
 from ..models.gpt.generation import (
-    GenerationConfig, decode_step, init_slot_cache, init_slot_state,
-    prefill_into_slots,
+    GenerationConfig, activate_slot, copy_kv_pages, decode_step,
+    init_page_pool, init_slot_cache, init_slot_state, prefill_chunk_paged,
+    prefill_into_slots, verify_step,
 )
 from ..models.gpt.model import GPTForPretraining
 from ..observability import metrics
 from ..utils.log import logger
+from .paging import (
+    NULL_PAGE, PageAllocator, PagePoolExhausted, page_prefix_keys,
+    pool_bytes, prompt_key,
+)
+from .spec import make_draft_source
 
 
 def default_prefill_buckets(max_prompt_len: int) -> Tuple[int, ...]:
@@ -74,37 +113,99 @@ class GenerationServer:
     Args:
         model (GPTForPretraining): the port's model, on the device the
             server runs on.
-        gen_cfg (GenerationConfig): sampling or greedy_search.
-        num_slots (int): concurrent requests (KV-cache rows).
-        prefill_buckets (Sequence[int]): prompt-length buckets
-            (default :func:`default_prefill_buckets`).
+        gen_cfg (GenerationConfig): sampling or greedy_search; with
+            ``spec_method`` the ticks are speculative.
+        num_slots (int): concurrent requests.
+        prefill_buckets (Sequence[int]): prompt-length buckets of the
+            contiguous mode (default :func:`default_prefill_buckets`).
         seed (int): sampling seed; request ``r`` draws its step ``t``
             with ``stream_seed(seed, nonce_r, t)``.
+        page_size (int): tokens per KV page; with ``pool_pages`` (or the
+            config's ``kv_page_size``) it turns paged mode on.
+        pool_pages (int): physical pages in the pool, null page
+            included (default: the contiguous footprint, every slot at
+            full capacity, plus the null page).
+        prefill_chunk_pages (int): pages per chunked-prefill step.
+        prefix_sharing (bool): share prompt pages through the prefix
+            and whole-prompt registries.
+        device_loop_ticks (int): ticks per host round trip; only 1 is
+            ported.
     """
 
     def __init__(self, model: GPTForPretraining, gen_cfg: GenerationConfig,
                  num_slots: int = 4,
                  prefill_buckets: Optional[Sequence[int]] = None,
-                 seed: int = 0, **unported):
+                 seed: int = 0, page_size: Optional[int] = None,
+                 pool_pages: Optional[int] = None,
+                 prefill_chunk_pages: int = 2, prefix_sharing: bool = True,
+                 device_loop_ticks: int = 1, **unported):
         if unported:
             raise NotImplementedError(
                 f"GenerationServer options not ported to the PyTorch "
-                f"package yet: {sorted(unported)} (this slice serves the "
-                f"contiguous cache, one tick per step)")
+                f"package yet: {sorted(unported)} (the host KV tier, "
+                f"LoRA, deadlines, shedding, drain, fault injection and "
+                f"KV export are later slices)")
+        if device_loop_ticks < 1:
+            raise ValueError(f"device_loop_ticks must be >= 1, got "
+                             f"{device_loop_ticks}")
+        if device_loop_ticks > 1:
+            raise NotImplementedError(
+                "device_loop_ticks > 1 (device-resident decode loops) is "
+                "not ported: the port runs one tick per step")
         if gen_cfg.decode_strategy == "beam_search":
             raise ValueError("GenerationServer serves sampling/"
                              "greedy_search; beam search stays on the "
                              "lockstep path")
-        if gen_cfg.spec_method is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         cfg = model.config
+        self.paged = bool(page_size or pool_pages or cfg.kv_page_size)
+        if self.paged:
+            page_size = int(page_size or cfg.kv_page_size)
+            if not pool_pages:
+                # the contiguous layout's footprint + the null page: the
+                # same memory behind the paged indirection
+                pool_pages = cfg.kv_pool_pages or (
+                    num_slots * (cfg.cache_capacity // max(page_size, 1))
+                    + 1)
+            # validated as GPTConfig validates the YAML knobs
+            cfg = dataclasses.replace(cfg, kv_page_size=page_size,
+                                      kv_pool_pages=int(pool_pages))
+            if prefill_chunk_pages < 1:
+                raise ValueError(f"prefill_chunk_pages must be >= 1, got "
+                                 f"{prefill_chunk_pages}")
+            if cfg.max_kv_pages % prefill_chunk_pages:
+                raise ValueError(
+                    f"prefill_chunk_pages ({prefill_chunk_pages}) must "
+                    f"divide max_kv_pages ({cfg.max_kv_pages}) so a "
+                    f"padded prefill never outgrows the page table")
+            self._page = cfg.kv_page_size
+            self._max_pages = cfg.max_kv_pages
+            self._chunk = self._page * prefill_chunk_pages
+            if self._chunk > cfg.max_position_embeddings:
+                raise ValueError(
+                    f"prefill chunk ({self._chunk} tokens) exceeds "
+                    f"max_position_embeddings "
+                    f"{cfg.max_position_embeddings}")
+            self._prefix_sharing = bool(prefix_sharing)
+            self._alloc = PageAllocator(cfg.kv_pool_pages, self._page)
+            self._pt = np.full((num_slots, self._max_pages), NULL_PAGE,
+                               np.int32)
+            self._pt_dirty = True
+            self._prefilling: deque = deque()
+            self._admit_seq = 0
+            self._prefill_chunk_count = 0
+        self.config = cfg
         self.model = model
         self.gen_cfg = gen_cfg
         self.num_slots = num_slots
         self.seed = int(seed)
+        self.spec = gen_cfg.spec_method is not None
+        self._spec_k = gen_cfg.spec_tokens
+        self._draft = make_draft_source(gen_cfg.spec_method) \
+            if self.spec else None
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self._max_prompt = cfg.max_position_embeddings - gen_cfg.max_dec_len
         if self._max_prompt < 1:
             raise ValueError(
@@ -117,22 +218,33 @@ class GenerationServer:
             buckets = buckets + (self._max_prompt,)
         self._buckets = buckets
         self._device = model.word_embeddings.device
-        self._cache = init_slot_cache(model, num_slots)
+        self._cache = init_page_pool(model, cfg) if self.paged else \
+            init_slot_cache(model, num_slots)
         self._state = init_slot_state(num_slots, cfg.vocab_size,
                                       self._device)
         self._queue: deque = deque()
         self._slots: List[Optional[dict]] = [None] * num_slots
         self._next_id = 0
         self._nonce = 0
-        self._counts = {"admitted": 0, "evicted": 0}
+        self._counts = {"admitted": 0, "evicted": 0, "preempted": 0}
         self._ticks = 0
         self._decode_tokens = 0
         self._tick_time = 0.0
         self._ttft_ms: List[float] = []
         self._tick_ms: List[float] = []
-        logger.info("GenerationServer: %d slots, prefill buckets %s, "
-                    "capacity %d on %s", num_slots, list(buckets),
-                    cfg.cache_capacity, self._device)
+        if self.paged:
+            logger.info(
+                "GenerationServer (paged): %d slots, %d-page pool of "
+                "%d-token pages (capacity %d = %d pages/slot max), "
+                "prefill chunk %d tokens, prefix sharing %s, spec %s on %s",
+                num_slots, cfg.kv_pool_pages, self._page,
+                cfg.cache_capacity, self._max_pages, self._chunk,
+                self._prefix_sharing, gen_cfg.spec_method, self._device)
+        else:
+            logger.info("GenerationServer: %d slots, prefill buckets %s, "
+                        "capacity %d, spec %s on %s", num_slots,
+                        list(buckets), cfg.cache_capacity,
+                        gen_cfg.spec_method, self._device)
 
     @property
     def occupancy(self) -> int:
@@ -143,6 +255,11 @@ class GenerationServer:
     def pending(self) -> int:
         """Number of submitted requests still waiting for a slot."""
         return len(self._queue)
+
+    def check_alloc(self) -> None:
+        """Assert the page allocator's invariants (paged mode)."""
+        if self.paged:
+            self._alloc.check()
 
     def submit(self, prompt: Sequence[int],
                nonce: Optional[int] = None) -> int:
@@ -176,7 +293,11 @@ class GenerationServer:
         return next(b for b in self._buckets if b >= n)
 
     def _admit(self) -> None:
-        """Move queued requests into free slots, one prefill each."""
+        """Move queued requests into free slots: one prefill each
+        (contiguous), or the paged admission."""
+        if self.paged:
+            self._admit_paged()
+            return
         while self._queue and None in self._slots:
             req = self._queue.popleft()
             slot = self._slots.index(None)
@@ -191,8 +312,255 @@ class GenerationServer:
             self._counts["admitted"] += 1
             metrics.inc("serving/admitted")
 
+    # -- paged scheduling ---------------------------------------------
+    #
+    # The host owns every paging decision: the numpy page-table master
+    # and the PageAllocator's refcounts live here, and the device sees
+    # the tables uploaded as int32 tensors. Two device views exist: the
+    # full one (a prefill chunk reads the shared / owned pages of a
+    # still-inactive slot) and the decode one, where every non-active
+    # slot's row is null, so an inactive slot's dead decode write lands
+    # in the garbage page instead of a page another request is still
+    # prefilling or sharing.
+
+    def _sync_pt(self) -> None:
+        if not self._pt_dirty:
+            return
+        self._pt_dev = torch.as_tensor(self._pt, device=self._device)
+        act = np.zeros((self.num_slots, 1), bool)
+        for s, r in enumerate(self._slots):
+            if r is not None and r.get("active"):
+                act[s, 0] = True
+        self._pt_dev_dec = torch.as_tensor(
+            np.where(act, self._pt, NULL_PAGE).astype(np.int32),
+            device=self._device)
+        self._pt_dirty = False
+
+    def _place(self, req: dict, slot: int, num_pages: int) -> None:
+        """Common bookkeeping of both paged admission paths."""
+        req["num_pages"] = num_pages
+        req["active"] = False
+        req["admit_seq"] = self._admit_seq
+        self._admit_seq += 1
+        self._slots[slot] = req
+        self._counts["admitted"] += 1
+        metrics.inc("serving/admitted")
+
+    def _activate(self, slot: int, last_logits_row: torch.Tensor) -> None:
+        """Flip a placed slot live from the host's view of the request
+        (seq = prompt + already emitted tokens, so a preempted request
+        re-enters mid-request)."""
+        req = self._slots[slot]
+        seq = req["prompt"] + req["tokens"]
+        appeared = np.zeros((self.config.vocab_size,), bool)
+        appeared[np.asarray(seq, np.int64)] = True
+        activate_slot(self._state, slot, len(seq), len(req["tokens"]),
+                      req["nonce"],
+                      torch.as_tensor(appeared, device=self._device),
+                      last_logits_row, req.pop("spec_rejected", -1))
+        req["active"] = True
+        req["cur_len"] = len(seq)
+        self._pt_dirty = True   # the decode view must unhide this row
+
+    def _admit_paged(self) -> None:
+        """Paged admission: a whole-prompt registry hit shares every
+        page and activates with zero prefill; otherwise map shared
+        prefix pages plus fresh owned pages and queue the slot for
+        chunked prefill. The queue HEAD blocks while the pool cannot
+        cover its owned pages: admitting smaller later requests over it
+        would starve long prompts."""
+        while self._queue and None in self._slots:
+            req = self._queue[0]
+            seq = req["prompt"] + req["tokens"]
+            L = len(seq)
+            slot = self._slots.index(None)
+            hit = self._alloc.lookup_prompt(prompt_key(seq)) \
+                if self._prefix_sharing else None
+            if hit is not None:
+                pages, last = hit
+                self._queue.popleft()
+                for pid in pages:
+                    self._alloc.retain(pid)
+                self._pt[slot, :] = NULL_PAGE
+                self._pt[slot, :len(pages)] = pages
+                self._pt_dirty = True
+                self._alloc.stats["prompt_hits"] += 1
+                metrics.inc("serving/prefix_hits")
+                self._place(req, slot, num_pages=len(pages))
+                self._activate(slot, last)
+                continue
+            shared: List[int] = []
+            if self._prefix_sharing:
+                # share only FULL pages strictly before the one holding
+                # the last prompt token: that page recomputes locally
+                # so the first sampling logits exist
+                for key in page_prefix_keys(
+                        seq, self._page)[:(L - 1) // self._page]:
+                    pid = self._alloc.lookup_prefix(key)
+                    if pid is None:
+                        break
+                    shared.append(pid)
+                # chunked prefill resumes at a CHUNK boundary: keep a
+                # chunk-aligned count of shared pages, or the rounded
+                # tail below could outgrow the page table
+                cpp = self._chunk // self._page
+                del shared[len(shared) - len(shared) % cpp:]
+            start = len(shared) * self._page
+            n_chunks = -(-(L - start) // self._chunk)
+            total_pages = (start + n_chunks * self._chunk) // self._page
+            if self._alloc.free_pages < total_pages - len(shared):
+                break
+            self._queue.popleft()
+            self._pt[slot, :] = NULL_PAGE
+            for j, pid in enumerate(shared):
+                self._alloc.retain(pid)
+                self._pt[slot, j] = pid
+            for j in range(len(shared), total_pages):
+                self._pt[slot, j] = self._alloc.alloc()
+            self._pt_dirty = True
+            if shared:
+                self._alloc.stats["prefix_hits"] += len(shared)
+                metrics.inc("serving/prefix_hits", len(shared))
+            self._place(req, slot, num_pages=total_pages)
+            req["prefill_pos"] = start
+            self._prefilling.append(slot)
+
+    def _prefill_pump(self) -> None:
+        """Run at most ONE page-aligned prefill chunk per step: the
+        oldest prefilling slot advances while every other slot's decode
+        tick proceeds, so a long admission never stalls the rest."""
+        if not self._prefilling:
+            return
+        slot = self._prefilling[0]
+        req = self._slots[slot]
+        seq = req["prompt"] + req["tokens"]
+        L = len(seq)
+        c0 = req["prefill_pos"]
+        row = np.full((1, self._chunk), self.gen_cfg.pad_token_id, np.int64)
+        piece = seq[c0:c0 + self._chunk]
+        row[0, :len(piece)] = piece
+        self._sync_pt()
+        # the last prompt token sits at chunk row L - 1 - c0 of the
+        # final chunk; other chunks' logits are not used
+        logits = prefill_chunk_paged(
+            self.model, self._cache, torch.as_tensor(row,
+                                                     device=self._device),
+            [c0], self._pt_dev[slot:slot + 1],
+            logit_rows=[min(L - 1 - c0, self._chunk - 1)])
+        req["prefill_pos"] = c0 + self._chunk
+        self._prefill_chunk_count += 1
+        metrics.inc("serving/prefill_chunks")
+        if req["prefill_pos"] < L:
+            return
+        self._prefilling.popleft()
+        del req["prefill_pos"]
+        # the chunk-rounded admission also mapped the final chunk's pad
+        # tail; that KV is never read, so its pages go straight back
+        self._trim_pages(slot, -(-L // self._page))
+        last = logits[0]
+        self._activate(slot, last)
+        if self._prefix_sharing:
+            for j, key in enumerate(page_prefix_keys(seq, self._page)):
+                self._alloc.register_prefix(key, int(self._pt[slot, j]))
+            self._alloc.register_prompt(
+                prompt_key(seq),
+                [int(p) for p in self._pt[slot, :req["num_pages"]]], last)
+
+    def _trim_pages(self, slot: int, keep: int) -> None:
+        """Release the slot's mapped pages past its first ``keep``
+        (``keep = 0``: all of them) and null their table entries."""
+        req = self._slots[slot]
+        mapped = req.get("num_pages", 0)
+        if keep >= mapped:
+            return
+        for j in range(keep, mapped):
+            pid = int(self._pt[slot, j])
+            if pid != NULL_PAGE:
+                self._alloc.release(pid)
+            self._pt[slot, j] = NULL_PAGE
+        req["num_pages"] = keep
+        self._pt_dirty = True
+
+    def _alloc_or_preempt(self, needy_slot: int) -> int:
+        """A free page, preempting the youngest OTHER occupied slot
+        (whole request back to the queue head, pages released) until
+        one exists. The config guarantees a lone slot can always grow
+        to its maximum length, so this terminates."""
+        pid = self._alloc.try_alloc()
+        while pid is None:
+            victims = [s for s, r in enumerate(self._slots)
+                       if r is not None and s != needy_slot]
+            if not victims:
+                raise PagePoolExhausted(
+                    f"slot {needy_slot} needs a page with none free and "
+                    f"no one to preempt (pool {self._alloc.num_pages} "
+                    f"pages)")
+            victim = max(victims, key=lambda s: self._slots[s]["admit_seq"])
+            self._preempt_slot(victim)
+            pid = self._alloc.try_alloc()
+        return pid
+
+    def _preempt_slot(self, victim: int) -> None:
+        """Take a request off the card to reclaim its pages, keeping its
+        host state (emitted tokens, nonce): re-admission prefills
+        prompt + tokens and resumes the sampling stream at the kept
+        ``dec_count``, token for token as if never preempted."""
+        req = self._slots[victim]
+        if req.get("active") and self.spec:
+            # a pending rejection residual must survive the round trip
+            req["spec_rejected"] = self._state.rejected[victim]
+        self._trim_pages(victim, 0)
+        if victim in self._prefilling:
+            self._prefilling.remove(victim)
+        self._slots[victim] = None
+        self._state.active[victim] = False
+        self._state.finished[victim] = False
+        req["active"] = False
+        req.pop("prefill_pos", None)
+        self._queue.appendleft(req)
+        self._counts["preempted"] += 1
+        metrics.inc("serving/preempted")
+
+    def _page_maintenance(self, window: int = 1) -> None:
+        """Before every tick: each active slot's next ``window`` write
+        positions (``cur_len .. cur_len + window - 1``: one for a plain
+        tick, k+1 for a verify tick) must land in pages it owns alone:
+        map fresh pages at page boundaries and split shared pages
+        copy-on-write (a device page copy and a refcount handoff) at the
+        first divergent write. Pages mapped for positions past a verify
+        tick's accepted point go back after the tick (:meth:`step`)."""
+        for slot in range(self.num_slots):
+            req = self._slots[slot]
+            if req is None or not req.get("active"):
+                continue
+            for w in range(window):
+                pos = req["cur_len"] + w
+                if pos >= self.config.cache_capacity:
+                    # a verify window's tail past the capacity clips to
+                    # the last column and is never committed
+                    break
+                j = pos // self._page
+                if j >= req["num_pages"]:
+                    self._pt[slot, j] = self._alloc_or_preempt(slot)
+                    req["num_pages"] = j + 1
+                    self._pt_dirty = True
+                else:
+                    pid = int(self._pt[slot, j])
+                    if self._alloc.refcount(pid) > 1:
+                        new = self._alloc_or_preempt(slot)
+                        copy_kv_pages(self._cache, [pid], [new])
+                        self._alloc.release(pid)
+                        self._pt[slot, j] = new
+                        self._pt_dirty = True
+                        self._alloc.stats["cow_splits"] += 1
+                        metrics.inc("serving/cow_splits")
+
     def _evict(self, slot: int, reason: str) -> Completion:
         req = self._slots[slot]
+        if self.paged:
+            self._trim_pages(slot, 0)
+            if slot in self._prefilling:
+                self._prefilling.remove(slot)
         self._slots[slot] = None
         self._state.active[slot] = False
         self._state.finished[slot] = False
@@ -202,37 +570,94 @@ class GenerationServer:
                           tokens=req["tokens"], finish_reason=reason,
                           ttft_ms=req.get("ttft_ms"))
 
+    def _tick(self, live: List[int]) -> Tuple[List[List[int]], List[int]]:
+        """One decode or verify tick over every slot: ``(window,
+        counts)``, slot ``s`` committing ``window[s][:counts[s]]``."""
+        pt = None
+        if self.spec:
+            # host drafts ride down with the tick; inactive rows are
+            # zeros the verify never commits
+            k = self._spec_k
+            drafts = [[0] * k for _ in range(self.num_slots)]
+            for slot in live:
+                req = self._slots[slot]
+                drafts[slot] = self._draft.propose(
+                    req["prompt"] + req["tokens"], k)
+            if self.paged:
+                # growth / COW decisions cover the whole k+1 window
+                self._page_maintenance(window=k + 1)
+                self._sync_pt()
+                pt = self._pt_dev_dec
+            return verify_step(self.model, self._cache, self._state,
+                               drafts, self.gen_cfg, self.seed, pt)
+        if self.paged:
+            self._page_maintenance()
+            self._sync_pt()
+            pt = self._pt_dev_dec
+        tokens = decode_step(self.model, self._cache, self._state,
+                             self.gen_cfg, self.seed, pt)
+        return [[t] for t in tokens], [1] * self.num_slots
+
     def step(self) -> List[Completion]:
-        """Admit what fits, tick every occupied slot one token, then
-        evict and return whatever finished."""
+        """Admit what fits, advance at most one prefill chunk (paged),
+        tick every ACTIVE slot (one token plain, 1..k+1 committed tokens
+        speculative), then evict and return whatever finished."""
         self._admit()
-        live = [s for s, r in enumerate(self._slots) if r is not None]
-        if not live:
-            return []
         reg = metrics.get_registry()
+        if self.paged:
+            self._prefill_pump()
+            reg.set_gauge("serving/pages_in_use", self._alloc.pages_in_use)
+        live = [s for s, r in enumerate(self._slots)
+                if r is not None and (not self.paged or r.get("active"))]
+        if not live:
+            reg.set_gauge("serving/slot_occupancy", self.occupancy)
+            return []
         t0 = time.perf_counter()
         with reg.timer("serving/decode_tick"):
-            # decode_step ends in a device->host copy of the tokens, so
+            # each tick ends in a device->host copy of its tokens, so
             # the timer covers the tick's device work
-            tokens = decode_step(self.model, self._cache, self._state,
-                                 self.gen_cfg, self.seed)
+            window, counts = self._tick(live)
         now = time.perf_counter()
         self._tick_time += now - t0
         self._tick_ms.append((now - t0) * 1e3)
         self._ticks += 1
         done: List[Completion] = []
+        committed = ticked = 0
         for slot in live:
             req = self._slots[slot]
-            req["tokens"].append(tokens[slot])
+            if req is None or (self.paged and not req.get("active")):
+                # preempted by the tick's page maintenance
+                continue
+            ticked += 1
+            m = counts[slot]
+            req["tokens"].extend(window[slot][:m])
             if "ttft_ms" not in req:
                 req["ttft_ms"] = (now - req["submit_t"]) * 1e3
                 self._ttft_ms.append(req["ttft_ms"])
+            if self.paged:
+                req["cur_len"] += m
+                if self.spec:
+                    # rejected-KV rollback: pages wholly past the
+                    # accepted point go straight back to the pool (the
+                    # partial page's stale columns sit past cur_len and
+                    # are overwritten before any read)
+                    self._trim_pages(slot, -(-req["cur_len"] // self._page))
+            committed += m
             if self._state.finished[slot]:
                 done.append(self._evict(slot, "eos"))
             elif self._state.dec_count[slot] >= self.gen_cfg.max_dec_len:
                 done.append(self._evict(slot, "length"))
-        self._decode_tokens += len(live)
-        metrics.inc("serving/decode_tokens", len(live))
+        self._decode_tokens += committed
+        metrics.inc("serving/decode_tokens", committed)
+        if self.spec:
+            drafted = self._spec_k * ticked
+            accepted = committed - ticked      # the t0s are not drafts
+            self._spec_drafted += drafted
+            self._spec_accepted += accepted
+            metrics.inc("serving/spec_drafted", drafted)
+            metrics.inc("serving/spec_accepted", accepted)
+            reg.set_gauge("serving/spec_accept_rate",
+                          self._spec_accepted / max(self._spec_drafted, 1))
         reg.set_gauge("serving/slot_occupancy", self.occupancy)
         return done
 
@@ -247,9 +672,11 @@ class GenerationServer:
         return [done[i] for i in ids]
 
     def summary(self) -> dict:
-        """Counters, decode tokens/s and TTFT / tick-time percentiles
-        over the server's lifetime (host clock; each tick ends in a
-        device sync)."""
+        """Counters, decode tokens/s (committed tokens over tick time)
+        and TTFT / tick-time percentiles over the server's lifetime
+        (host clock; each tick ends in a device sync); paged servers
+        add the pool's occupancy and the allocator's sharing stats,
+        speculative ones the draft and accept counts."""
         s = {"slots": self.num_slots, "occupancy": self.occupancy,
              "pending": self.pending, "decode_ticks": self._ticks,
              "decode_tokens": self._decode_tokens,
@@ -261,4 +688,21 @@ class GenerationServer:
             if series:
                 s[f"{name}_p50_ms"] = float(np.percentile(series, 50))
                 s[f"{name}_p99_ms"] = float(np.percentile(series, 99))
+        if self.spec:
+            s["spec_tokens"] = self._spec_k
+            s["spec_drafted"] = self._spec_drafted
+            s["spec_accepted"] = self._spec_accepted
+            s["spec_accept_rate"] = \
+                self._spec_accepted / max(self._spec_drafted, 1)
+        if self.paged:
+            cfg = self.config
+            s["paged"] = True
+            s["page_size"] = self._page
+            s["pool_pages"] = self._alloc.num_pages
+            s["pages_in_use"] = self._alloc.pages_in_use
+            s["prefill_chunks"] = self._prefill_chunk_count
+            s["pool_bytes"] = pool_bytes(
+                cfg.num_layers, cfg.num_attention_heads, cfg.head_dim,
+                self._page, self._alloc.num_pages)
+            s.update(self._alloc.stats)
         return s

@@ -44,4 +44,28 @@ static __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
   }
 }
 
+// One 16-byte vector kept as loaded (4 registers whatever T is), to be
+// widened to fp32 where it is used: a kernel that holds several loads
+// in flight spends half the registers on bf16 data this way.
+static __device__ __forceinline__ uint4 load_raw(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+static __device__ __forceinline__ void widen(const uint4& r, float* out,
+                                             const float*) {
+  out[0] = __uint_as_float(r.x);
+  out[1] = __uint_as_float(r.y);
+  out[2] = __uint_as_float(r.z);
+  out[3] = __uint_as_float(r.w);
+}
+static __device__ __forceinline__ void widen(const uint4& r, float* out,
+                                             const __nv_bfloat16*) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 }  // namespace pfx

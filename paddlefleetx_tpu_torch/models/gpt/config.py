@@ -4,9 +4,10 @@
 Same fields, defaults and ``from_config`` as the JAX package, so one
 YAML ``Model`` section builds either model. The knobs whose code paths
 this port does not have yet raise ``NotImplementedError`` at
-construction instead of being ignored: paged KV (``kv_page_size``,
-``kv_pool_pages``), the int8 KV cache, weight-only int8 execution,
-LoRA, MoE and context parallelism. The training knobs act on the
+construction instead of being ignored: the int8 KV cache, weight-only
+int8 execution, LoRA, MoE and context parallelism. Paged KV
+(``kv_page_size``, ``kv_pool_pages``) is validated word for word as in
+the JAX package, so a YAML is accepted or refused alike by both. The training knobs act on the
 training path (``model.py``): ``use_recompute`` and all four
 ``recompute_granularity`` values, ``loss_chunks`` and the two dropout
 probabilities. The model-parallel knobs (pipeline schedule, virtual
@@ -90,6 +91,40 @@ class GPTConfig:
         if self.context_parallel_algo not in ("ring", "ulysses"):
             raise ValueError(f"unknown context_parallel_algo "
                              f"{self.context_parallel_algo!r}")
+        # Paged-KV composition, as the JAX package checks it: the page
+        # must tile the capacity and the pool must hold one
+        # maximum-length request plus the null page
+        if self.kv_page_size or self.kv_pool_pages:
+            if self.kv_page_size <= 0:
+                raise ValueError(
+                    f"kv_pool_pages ({self.kv_pool_pages}) is set but "
+                    f"kv_page_size is {self.kv_page_size}; paged KV "
+                    f"needs both (set kv_page_size to a multiple of "
+                    f"128 that divides cache_capacity "
+                    f"{self.cache_capacity})")
+            if self.kv_page_size % 128:
+                raise ValueError(
+                    f"kv_page_size ({self.kv_page_size}) must be a "
+                    f"multiple of 128 — the same TPU-lane rounding "
+                    f"cache_capacity uses, so every page tiles the "
+                    f"flash-decode kernel's 128-aligned KV blocks")
+            if self.cache_capacity % self.kv_page_size:
+                raise ValueError(
+                    f"cache_capacity ({self.cache_capacity}, "
+                    f"max_position_embeddings "
+                    f"{self.max_position_embeddings} rounded up to "
+                    f"128) must be divisible by kv_page_size "
+                    f"({self.kv_page_size}) so a slot's page table "
+                    f"covers it exactly (max_kv_pages = "
+                    f"capacity / page)")
+            if self.kv_pool_pages < self.max_kv_pages + 1:
+                raise ValueError(
+                    f"kv_pool_pages ({self.kv_pool_pages}) must be at "
+                    f"least max_kv_pages + 1 = {self.max_kv_pages + 1} "
+                    f"(one maximum-length request's "
+                    f"{self.max_kv_pages} pages plus the reserved "
+                    f"null page 0), or a single request can deadlock "
+                    f"the page pool")
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_cache_dtype "
                              f"{self.kv_cache_dtype!r}")
@@ -99,8 +134,6 @@ class GPTConfig:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute dtype {self.dtype!r}")
         unported = {
-            "kv_page_size": self.kv_page_size != 0,
-            "kv_pool_pages": self.kv_pool_pages != 0,
             "kv_cache_dtype": self.kv_cache_dtype == "int8",
             "quant_execution": self.quant_execution != "off",
             "lora_rank": self.lora_rank != 0,
@@ -113,8 +146,8 @@ class GPTConfig:
         if asked:
             raise NotImplementedError(
                 f"GPTConfig knobs not ported to the PyTorch package yet: "
-                f"{asked} (paged KV, int8 KV, int8 execution, LoRA, MoE, "
-                f"context parallelism and unfused q/k/v are later slices)")
+                f"{asked} (int8 KV, int8 execution, LoRA, MoE, context "
+                f"parallelism and unfused q/k/v are later slices)")
 
     @property
     def head_dim(self) -> int:
@@ -128,6 +161,15 @@ class GPTConfig:
         rounding was a TPU tile rule; it is kept so both packages size
         their caches alike)."""
         return -(-self.max_position_embeddings // 128) * 128
+
+    @property
+    def max_kv_pages(self) -> int:
+        """Width of a slot's page table under paged KV serving:
+        ``cache_capacity / kv_page_size`` logical pages cover one
+        slot's full capacity. 0 when paging is off."""
+        if not self.kv_page_size:
+            return 0
+        return self.cache_capacity // self.kv_page_size
 
     @classmethod
     def from_config(cls, config) -> "GPTConfig":

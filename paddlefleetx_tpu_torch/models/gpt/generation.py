@@ -12,28 +12,40 @@ the JAX package's ``models/gpt/generation.py``): the lockstep
   rows are independent requests at independent lengths:
   :func:`prefill_into_slots` admits requests into free rows (right
   padded to a bucket; causality masks the pad tail),
-  :func:`decode_step` advances every slot one token through
-  ``flash_decode_ragged`` with per-slot offsets.
+  :func:`decode_step` advances every slot one token through the ragged
+  decode kernel with per-slot offsets, and :func:`verify_step` (the
+  speculative tick) scores a drafted window per slot in one forward
+  through the verify kernel and commits each slot's accepted prefix.
+- Under paged serving the cache is a global page pool
+  (:func:`init_page_pool`) reached through a page table: both ticks
+  take the table, :func:`prefill_chunk_paged` runs one page-aligned
+  prefill chunk, :func:`copy_kv_pages` is the copy half of a
+  copy-on-write split and :func:`activate_slot` flips an admitted slot
+  live from host-computed state.
 
-Both paths sample from the same processor pipeline (repetition
+All paths sample from the same processor pipeline (repetition
 penalty, min-length, temperature, exact top-k / top-p). Sampling draws
 from a ``torch.Generator`` seeded per (seed, stream, step): the row
 index in :func:`generate`, the request nonce in the server, so a
-request's sample depends on neither its slot nor its neighbours. The
-numbers differ from the JAX package's ``jax.random`` streams; greedy
-decoding is token-exact against it. The cache is updated in place.
+request's sample depends on neither its slot nor its neighbours; the
+verify tick's accept test draws its uniform from the same keys with a
+salt (:func:`accept_uniform`). The numbers differ from the JAX
+package's ``jax.random`` streams; greedy decoding is token-exact
+against it. The cache is updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import GPTConfig
-from .model import GPTForPretraining, KVCache, init_kv_cache, tied_logits
+from .model import (
+    GPTForPretraining, KVCache, init_kv_cache, init_kv_pool, tied_logits,
+)
 from .processors import (
     NEG_INF, min_length_processor, repetition_penalty_processor,
     top_k_top_p_filter,
@@ -45,10 +57,11 @@ _MASK64 = (1 << 64) - 1
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     """Knobs named as in the reference YAML ``Generation`` section (the
-    JAX package's fields). Not ported yet: ``beam_search`` (``generate``
-    raises) and ``spec_method`` (the server raises). ``approx_top_k``
-    is accepted; the port's top-k is always exact, which meets the
-    approximate filter's superset contract."""
+    JAX package's fields). Not ported yet: ``beam_search``
+    (``generate`` raises). ``spec_method`` (``"ngram"`` or None) and
+    ``spec_tokens`` turn speculative decoding on in the server.
+    ``approx_top_k`` is accepted; the port's top-k is always exact,
+    which meets the approximate filter's superset contract."""
 
     max_dec_len: int = 20
     min_dec_len: int = 0
@@ -69,6 +82,19 @@ class GenerationConfig:
     spec_tokens: int = 4
 
     def __post_init__(self):
+        if self.spec_method is not None:
+            if self.spec_method not in ("ngram",):
+                raise ValueError(
+                    f"unknown spec_method {self.spec_method!r} "
+                    f"(supported: 'ngram')")
+            if self.spec_tokens < 1:
+                raise ValueError(
+                    f"spec_tokens must be >= 1, got {self.spec_tokens}")
+            if self.decode_strategy == "beam_search":
+                raise ValueError(
+                    "speculative decoding (spec_method) serves "
+                    "sampling/greedy_search only; beam search stays on "
+                    "the lockstep generate() path")
         if self.decode_strategy not in ("sampling", "greedy_search",
                                         "beam_search"):
             raise ValueError(
@@ -121,27 +147,48 @@ def _decode_bias(valid: torch.Tensor) -> torch.Tensor:
                                                                 None, :]
 
 
+def _processed(logits: torch.Tensor, appeared: torch.Tensor, dec_count,
+               gen_cfg: GenerationConfig) -> torch.Tensor:
+    """Repetition penalty over ``appeared``, then min-length over
+    ``dec_count`` (an int or a ``[b, 1]`` tensor)."""
+    logits = repetition_penalty_processor(logits, appeared,
+                                          gen_cfg.repetition_penalty)
+    return min_length_processor(logits, dec_count, gen_cfg.min_dec_len,
+                                gen_cfg.eos_token_id)
+
+
+def _filtered(logits: torch.Tensor, gen_cfg: GenerationConfig
+              ) -> torch.Tensor:
+    """Temperature, then the top-k / top-p filter (sampling)."""
+    logits = logits / max(gen_cfg.temperature, 1e-6)
+    return top_k_top_p_filter(logits, gen_cfg.top_k, gen_cfg.top_p)
+
+
 def next_token(logits: torch.Tensor, appeared: torch.Tensor, dec_count,
-               gen_cfg: GenerationConfig, seeds: Sequence[int]
-               ) -> torch.Tensor:
+               gen_cfg: GenerationConfig, seeds: Sequence[int],
+               rejected: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Pick one token per row: repetition penalty over ``appeared``,
     min-length over ``dec_count`` (tokens generated so far: an int or a
     ``[b, 1]`` tensor), then argmax (greedy) or a draw from the
     temperature-scaled, top-k / top-p filtered distribution with row
-    ``i``'s generator seeded by ``seeds[i]``."""
-    logits = repetition_penalty_processor(logits, appeared,
-                                          gen_cfg.repetition_penalty)
-    logits = min_length_processor(logits, dec_count, gen_cfg.min_dec_len,
-                                  gen_cfg.eos_token_id)
+    ``i``'s generator seeded by ``seeds[i]``. Under sampling,
+    ``rejected[i] >= 0`` is a draft the previous verify tick rejected,
+    masked out after the filter (the rejection-sampling residual);
+    ``-1`` masks nothing."""
+    logits = _processed(logits, appeared, dec_count, gen_cfg)
     if gen_cfg.decode_strategy == "greedy_search":
         return torch.argmax(logits, dim=-1)
     if gen_cfg.decode_strategy != "sampling":
         raise NotImplementedError(
             f"decode_strategy {gen_cfg.decode_strategy!r} is not ported "
             f"(greedy_search and sampling are)")
-    logits = logits / max(gen_cfg.temperature, 1e-6)
-    probs = torch.softmax(top_k_top_p_filter(logits, gen_cfg.top_k,
-                                             gen_cfg.top_p), dim=-1)
+    logits = _filtered(logits, gen_cfg)
+    if rejected is not None and any(r >= 0 for r in rejected):
+        rej = torch.as_tensor(list(rejected), device=logits.device)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(vocab[None, :] == rej[:, None],
+                             torch.full_like(logits, NEG_INF), logits)
+    probs = torch.softmax(logits, dim=-1)
     picks = []
     for row, seed in enumerate(seeds):
         gen = torch.Generator(device=logits.device).manual_seed(seed)
@@ -244,6 +291,11 @@ class SlotState:
     appeared: torch.Tensor
     #: ``[slots, V]`` fp32 — logits the next tick samples from
     last_logits: torch.Tensor
+    #: draft token the previous verify tick REJECTED under sampling (-1
+    #: = none): the next tick's draw from ``last_logits`` masks it out
+    #: (the rejection-sampling residual). Always -1 under greedy and
+    #: with speculation off.
+    rejected: List[int]
 
 
 def init_slot_state(num_slots: int, vocab_size: int,
@@ -256,7 +308,8 @@ def init_slot_state(num_slots: int, vocab_size: int,
         appeared=torch.zeros((num_slots, vocab_size), dtype=torch.bool,
                              device=device),
         last_logits=torch.zeros((num_slots, vocab_size),
-                                dtype=torch.float32, device=device))
+                                dtype=torch.float32, device=device),
+        rejected=[-1] * num_slots)
 
 
 def init_slot_cache(model: GPTForPretraining, num_slots: int) -> KVCache:
@@ -296,18 +349,23 @@ def prefill_into_slots(model: GPTForPretraining, cache: KVCache,
         state.nonce[slot] = int(nonce)
         state.finished[slot] = False
         state.active[slot] = True
+        state.rejected[slot] = -1
 
 
 @torch.no_grad()
 def decode_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
-                gen_cfg: GenerationConfig, seed: int = 0) -> List[int]:
+                gen_cfg: GenerationConfig, seed: int = 0,
+                page_table: Optional[torch.Tensor] = None) -> List[int]:
     """One decode tick over every slot, in place: sample from each
     slot's ``last_logits`` (min-length over its own ``dec_count``,
     sampling stream ``stream_seed(seed, nonce, dec_count)``), write the
     token's keys/values at each slot's own length and attend through
-    the ragged decode kernel. Free and finished slots ride along as pad
-    tokens with frozen lengths (their writes are overwritten before any
-    read). Returns the token each slot emitted (pad where inactive)."""
+    the ragged decode kernel, or with a ``page_table [slots,
+    max_pages]`` through the page pool ``cache`` and the paged decode
+    kernel. Free and finished slots ride along as pad tokens with
+    frozen lengths (their writes are overwritten before any read, or
+    land in the null page). Returns the token each slot emitted (pad
+    where inactive)."""
     dev = state.last_logits.device
     slots = len(state.lengths)
     dec = torch.as_tensor(state.dec_count, device=dev)[:, None]
@@ -322,7 +380,7 @@ def decode_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
     lengths = torch.as_tensor(state.lengths, dtype=torch.int32, device=dev)
     pos = lengths.clamp(0, model.config.max_position_embeddings - 1)
     hidden = model.gpt(token[:, None], pos[:, None].long(), cache=cache,
-                       decode_offset=lengths)
+                       decode_offset=lengths, page_table=page_table)
     state.last_logits = _last_logits(model, hidden[:, -1])
     tokens = token.tolist()
     for i in range(slots):
@@ -332,3 +390,205 @@ def decode_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
             if tokens[i] == gen_cfg.eos_token_id:
                 state.finished[i] = True
     return tokens
+
+
+#: salt separating a verify tick's ACCEPT uniform at request step c + j
+#: from the draw the next tick makes at the same step when that draft
+#: is rejected (the JAX package's ``SPEC_ACCEPT_SALT``)
+SPEC_ACCEPT_SALT = 7919
+
+
+def accept_uniform(seed: int, nonce: int, step: int) -> float:
+    """The accept test's uniform in ``[0, 1)`` for request ``nonce`` at
+    request step ``step``: the top 53 bits of ``stream_seed(seed,
+    nonce, step, SPEC_ACCEPT_SALT)``. It depends on neither the slot
+    nor the neighbours, like the draws of :func:`next_token`."""
+    return (stream_seed(seed, nonce, step, SPEC_ACCEPT_SALT) >> 10) / \
+        float(1 << 53)
+
+
+@torch.no_grad()
+def verify_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
+                drafts: Sequence[Sequence[int]], gen_cfg: GenerationConfig,
+                seed: int = 0, page_table: Optional[torch.Tensor] = None
+                ) -> Tuple[List[List[int]], List[int]]:
+    """One SPECULATIVE tick, in place: score ``k`` drafted tokens per
+    slot in a single forward and commit the accepted prefix (+1 sampled
+    token). The port of the JAX package's ``verify_step``.
+
+    ``drafts [slots][k]`` are the draft source's guesses for each
+    request's NEXT k tokens AFTER the one this tick samples
+    (``core/spec.py``; draft content only affects throughput, never
+    output). The tick:
+
+    1. samples ``t0`` from ``last_logits`` through exactly
+       :func:`decode_step`'s pipeline and stream, with the previous
+       tick's ``rejected`` draft masked out after the filter;
+    2. runs the model ONCE over the ``[slots, k+1]`` window ``[t0,
+       d_1..d_k]`` at positions ``lengths .. lengths + k`` (the verify
+       kernel over the contiguous cache, or with ``page_table`` the
+       paged verify kernel);
+    3. walks the drafts left to right: ``d_j`` commits iff every earlier
+       window token committed, none was EOS, the request's budget
+       allows it (``dec_count + j < max_dec_len``) and it passes the
+       accept test. Greedy: ``d_j`` is the argmax of the processed
+       logits at its position (teacher-forced logits are the sequential
+       ones, so greedy output is token-exact with speculation off).
+       Sampling: ``u < p(d_j)`` with ``u`` from :func:`accept_uniform`
+       and ``p`` the filtered distribution; a rejected draft is
+       recorded in ``rejected`` for the next tick's residual.
+
+    Rejected KV needs no device-side undo: lengths advance only by the
+    committed count, and the next window overwrites the stale columns
+    before any read reaches them (paged: the server hands pages past
+    the accepted point back to the pool).
+
+    Returns:
+        ``(window, counts)``: ``window [slots][k+1]`` is the tick's
+        token run (entry 0 = ``t0``, pad where inactive), ``counts
+        [slots]`` how many of them committed (1..k+1).
+    """
+    dev = state.last_logits.device
+    slots = len(state.lengths)
+    k = len(drafts[0])
+    eos, pad = gen_cfg.eos_token_id, gen_cfg.pad_token_id
+    rows = torch.arange(slots, device=dev)
+    active = torch.as_tensor(state.active, device=dev)
+    fin = torch.as_tensor(state.finished, device=dev)
+    dec = torch.as_tensor(state.dec_count, device=dev)[:, None]
+    seeds = [stream_seed(seed, state.nonce[i], state.dec_count[i])
+             for i in range(slots)]
+    t0 = next_token(state.last_logits, state.appeared, dec, gen_cfg, seeds,
+                    state.rejected)
+    t0 = torch.where(fin | ~active, pad, t0)
+    window = torch.cat([t0[:, None], torch.as_tensor(
+        [list(d) for d in drafts], dtype=t0.dtype, device=dev)], dim=1)
+    lengths = torch.as_tensor(state.lengths, dtype=torch.int32, device=dev)
+    pos = (lengths.long()[:, None] + torch.arange(k + 1, device=dev)[None]
+           ).clamp(0, model.config.max_position_embeddings - 1)
+    hidden = model.gpt(window, pos, cache=cache, decode_offset=lengths,
+                       page_table=page_table)
+    logits_w = _last_logits(model, hidden)                 # [slots, k+1, V]
+
+    sampling = gen_cfg.decode_strategy == "sampling"
+    if sampling:
+        uniforms = torch.as_tensor(
+            [[accept_uniform(seed, state.nonce[i], state.dec_count[i] + j)
+              for j in range(1, k + 1)] for i in range(slots)],
+            dtype=torch.float32, device=dev)
+    fin = fin | (active & (t0 == eos))
+    state.appeared[rows, t0] = True
+    commit = torch.ones((slots,), dtype=torch.bool, device=dev)
+    counts = torch.ones((slots,), dtype=torch.long, device=dev)
+    rejected = torch.full((slots,), -1, dtype=torch.long, device=dev)
+    budget = torch.as_tensor([gen_cfg.max_dec_len - c
+                              for c in state.dec_count], device=dev)
+    for j in range(1, k + 1):
+        dj = window[:, j]
+        lg = _processed(logits_w[:, j - 1], state.appeared, dec + j, gen_cfg)
+        if sampling:
+            p = torch.softmax(_filtered(lg, gen_cfg), dim=-1)
+            ok = uniforms[:, j - 1] < p.gather(1, dj[:, None])[:, 0]
+        else:
+            ok = dj == torch.argmax(lg, dim=-1)
+        can = commit & ~fin & active & (j < budget)
+        cj = can & ok
+        if sampling:
+            # at most one (can & ~ok) per slot: the chain stops there
+            rejected = torch.where(can & ~ok, dj, rejected)
+        commit = cj
+        counts = counts + cj
+        state.appeared[rows, dj] = state.appeared[rows, dj] | cj
+        fin = fin | (cj & (dj == eos))
+    # the logits after the last committed token: the next tick's t0
+    state.last_logits = logits_w[rows, counts - 1]
+    host = torch.cat([window, counts[:, None], fin[:, None].long(),
+                      rejected[:, None]], dim=1).tolist()
+    out_window, out_counts = [], []
+    for i, row in enumerate(host):
+        n = int(row[k + 1])
+        out_window.append([int(t) for t in row[:k + 1]])
+        out_counts.append(n)
+        if state.active[i]:
+            state.lengths[i] += n
+            state.dec_count[i] += n
+        state.finished[i] = bool(row[k + 2])
+        state.rejected[i] = int(row[k + 3])
+    return out_window, out_counts
+
+
+# -- the paged pool ------------------------------------------------------
+
+
+def init_page_pool(model: GPTForPretraining, cfg: GPTConfig) -> KVCache:
+    """The zeroed global page pool of a paged server on the model's
+    device: per layer ``(k, v)`` of ``[kv_pool_pages, heads,
+    kv_page_size, head_dim]``. ``cfg`` is the model's config with the
+    server's ``kv_page_size`` / ``kv_pool_pages``."""
+    return init_kv_pool(cfg, model.word_embeddings.device)
+
+
+@torch.no_grad()
+def prefill_chunk_paged(model: GPTForPretraining, pool: KVCache,
+                        input_chunk: torch.Tensor,
+                        chunk_start: torch.Tensor,
+                        page_table: torch.Tensor,
+                        logit_rows: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """One page-aligned chunk of a chunked prefill, in place.
+
+    ``input_chunk [n, chunk]`` are token ids (a tail past the prompt
+    padded with any token: its KV lands past the prompt, where the
+    per-slot masks never read and the first decode writes overwrite);
+    ``chunk_start [n]`` is each row's position of the chunk's first
+    token (a multiple of ``kv_page_size``); ``page_table [n,
+    max_pages]`` carries the prefilling rows. The chunk's KV drops
+    straight into its pages while its queries attend to every earlier
+    position through the page table (the gather + dense route, as in
+    the JAX package). Returns fp32 logits ``[n, chunk, V]``, or with
+    ``logit_rows [n]`` only those rows' ``[n, V]`` (the server wants
+    the last prompt token's)."""
+    n, c = input_chunk.shape
+    dev = input_chunk.device
+    start = torch.as_tensor(chunk_start, device=dev).long()
+    pos = (start[:, None] + torch.arange(c, device=dev)[None, :]).clamp(
+        0, model.config.max_position_embeddings - 1)
+    hidden = model.gpt(input_chunk, pos, cache=pool, page_table=page_table,
+                       chunk_start=start)
+    if logit_rows is not None:
+        hidden = hidden[torch.arange(n, device=dev),
+                        torch.as_tensor(logit_rows, device=dev).long()]
+    return _last_logits(model, hidden)
+
+
+@torch.no_grad()
+def copy_kv_pages(pool: KVCache, src: Sequence[int],
+                  dst: Sequence[int]) -> None:
+    """Copy physical pages ``src -> dst`` in every layer's K and V pool,
+    in place: the copy half of a copy-on-write split (the server
+    rewires the page table and the refcounts around it)."""
+    dev = pool[0][0].device
+    s = torch.as_tensor(list(src), device=dev)
+    d = torch.as_tensor(list(dst), device=dev)
+    for k_pool, v_pool in pool:
+        k_pool[d] = k_pool[s]
+        v_pool[d] = v_pool[s]
+
+
+def activate_slot(state: SlotState, slot: int, length: int, dec_count: int,
+                  nonce: int, appeared_row: torch.Tensor,
+                  last_logits_row: torch.Tensor, rejected: int = -1) -> None:
+    """Flip one slot live from host-computed state, in place: the paged
+    admission paths (chunked-prefill completion, whole-prompt registry
+    hit, a preempted request's resume) activate through here.
+    ``dec_count`` is nonzero only for resumes, so a requeued request's
+    min-length and sampling stream continue where they stopped;
+    ``rejected`` likewise restores a pending rejection residual."""
+    state.lengths[slot] = int(length)
+    state.dec_count[slot] = int(dec_count)
+    state.nonce[slot] = int(nonce)
+    state.finished[slot] = False
+    state.active[slot] = True
+    state.rejected[slot] = int(rejected)
+    state.appeared[slot] = appeared_row
+    state.last_logits[slot] = last_logits_row

@@ -24,23 +24,28 @@ belongs to (:func:`recompute_policy`). The LM losses are
 :func:`cross_entropy_loss` and :func:`chunked_lm_loss`.
 
 KV cache: one ``(k, v)`` pair per layer, each ``[b, h, S, d]`` with
-``S = cache_capacity`` (the port's layout, see ``ops/attention.py``).
-The cache is updated IN PLACE (PyTorch is not functional): a prefill
-writes positions ``0..s-1`` of its rows, a decode step writes one
-position per row. Prefill attends over the prompt's fresh q/k/v through
-the flash forward kernel (``attention/flash``): with query offset 0
-every key past the prompt is causally masked, so this equals the JAX
-package's dense attention over the whole capacity. Decode attends over
-the cache through the decode kernel (``attention/flash_decode`` with
-one shared offset, ``attention/flash_decode_ragged`` with per-row
-offsets).
+``S = cache_capacity`` (the port's layout, see ``ops/attention.py``),
+or under paged serving a global page pool ``[kv_pool_pages, h,
+kv_page_size, d]`` per layer that every row reaches through its
+``page_table`` row (the JAX pool is ``[P, h, d, page]``). The cache is
+updated IN PLACE (PyTorch is not functional): a prefill writes
+positions ``0..s-1`` of its rows, a decode step writes ``s >= 1``
+positions per row from that row's offset (``s > 1``: the speculative
+verify window), a paged chunk (``chunk_start``) drops a page-aligned
+chunk straight into its pages. Prefill attends over the prompt's fresh
+q/k/v through the flash forward kernel (``attention/flash``): with
+query offset 0 every key past the prompt is causally masked, so this
+equals the JAX package's dense attention over the whole capacity.
+Decode and verify attend over the cache through the decode kernels
+(``ops/attention.py`` lists the routes and their counters); a paged
+prefill chunk takes the JAX package's gather + dense route.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import List, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -162,17 +167,23 @@ class MultiHeadAttention(nn.Module):
                 kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 cache_rows: Optional[torch.Tensor],
                 decode_offset: Union[int, torch.Tensor, None],
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                paged: Optional[PagedWrite] = None) -> torch.Tensor:
         """Attention of ``x [b, s, hidden]``.
 
         Without ``kv``: causal attention over x itself, with the
         attention-probability dropout of ``dropout_seed`` (training;
-        None: none). With ``kv`` and no ``decode_offset``: a prefill
-        that attends over x and writes its keys/values at positions
-        ``0..s-1`` of cache rows ``cache_rows`` (rows ``0..b-1`` when
-        None). With ``decode_offset`` (s == 1): write at that position
-        (an int for every row, or a ``[b]`` int32 tensor per row) and
-        attend over the cache up to it.
+        None: none). With ``kv`` and neither ``decode_offset`` nor
+        ``chunk_start``: a prefill that attends over x and writes its
+        keys/values at positions ``0..s-1`` of cache rows
+        ``cache_rows`` (rows ``0..b-1`` when None). With
+        ``decode_offset`` (an int for every row, or a ``[b]`` int32
+        tensor per row): write the ``s`` tokens at positions
+        ``offset .. offset + s - 1`` (clipped to the capacity) and
+        attend over the cache, query ``j`` up to ``offset + j``. With
+        ``paged`` (:func:`page_write`, resolved once per forward) ``kv``
+        is the page pool: the tokens land where ``paged`` points and
+        attention reads through its page table.
         """
         cfg = self.cfg
         b, s, _ = x.shape
@@ -181,7 +192,23 @@ class MultiHeadAttention(nn.Module):
             qkv = self.qkv_proj(x).view(b, s, 3, nh, hd)
             q, k, v = (t.contiguous() for t in qkv.unbind(2))  # [b,s,nh,hd]
         use_flash = cfg.use_flash_attention
-        if kv is None or decode_offset is None:
+        if paged is not None:
+            for dst, t in zip(kv, (k, v)):
+                if paged.column is None:
+                    # [b, s, h, d] -> [b, cp, h, page, d] page-major blocks
+                    cp = paged.pids.shape[1]
+                    dst[paged.pids] = t.view(b, cp, -1, nh, hd).transpose(
+                        2, 3)
+                else:
+                    # advanced indices on dims 0 and 2 put [b, s] first
+                    dst[paged.pids, :, paged.column] = t
+            out = dot_product_attention(q, kv[0], kv[1], attn_bias,
+                                        causal=True,
+                                        query_offset=paged.offset,
+                                        use_flash=use_flash,
+                                        kv_cache_layout=True,
+                                        page_table=paged.page_table)
+        elif kv is None or decode_offset is None:
             rate = cfg.attention_probs_dropout_prob \
                 if dropout_seed is not None else 0.0
             with _site("attn" if use_flash else "core_attn"):
@@ -197,17 +224,27 @@ class MultiHeadAttention(nn.Module):
                     else:
                         cache[cache_rows, :, :s] = t
         else:
-            if s != 1:
-                raise NotImplementedError(
-                    "cached decode takes one token per row")
             cap = kv[0].shape[2]
             if torch.is_tensor(decode_offset):
                 pos = decode_offset.clamp(0, cap - 1)
                 rows = torch.arange(b, device=x.device)
-                for cache, t in zip(kv, (k, v)):
-                    cache[rows, :, pos.long()] = t[:, 0]
+                if s == 1:
+                    for cache, t in zip(kv, (k, v)):
+                        cache[rows, :, pos.long()] = t[:, 0]
+                else:
+                    # the verify window: row i's tokens at pos[i] + j;
+                    # columns past the accepted point are overwritten
+                    # by the next window before any read
+                    wpos = (pos.long()[:, None] + torch.arange(
+                        s, device=x.device)[None, :]).clamp(0, cap - 1)
+                    for cache, t in zip(kv, (k, v)):
+                        cache[rows[:, None], :, wpos] = t
                 offset = pos.to(torch.int32)
             else:
+                if s != 1:
+                    raise NotImplementedError(
+                        "a multi-token window against the cache takes "
+                        "per-row offsets")
                 offset = min(max(int(decode_offset), 0), cap - 1)
                 for cache, t in zip(kv, (k, v)):
                     cache[:, :, offset] = t[:, 0]
@@ -217,6 +254,53 @@ class MultiHeadAttention(nn.Module):
                                         kv_cache_layout=True)
         with _site("attn_out"):
             return self.out_proj(out.reshape(b, s, nh * hd))
+
+
+class PagedWrite(NamedTuple):
+    """Where a paged forward's ``s`` fresh tokens per row land in the
+    page pool, resolved once for every layer by :func:`page_write`.
+
+    ``pids`` are physical page ids: ``[b, s]`` with ``column [b, s]``
+    the column inside each page (decode / verify), or ``[b, s / page]``
+    whole pages with ``column`` None (a page-aligned prefill chunk).
+    ``offset [b]`` int32 is the per-row query offset attention masks
+    against; ``page_table [b, max_pages]`` is what it reads through."""
+
+    page_table: torch.Tensor
+    pids: torch.Tensor
+    column: Optional[torch.Tensor]
+    offset: torch.Tensor
+
+
+def page_write(page_table: torch.Tensor, s: int, page: int, capacity: int,
+               decode_offset, chunk_start) -> PagedWrite:
+    """Resolve ``s`` tokens per row through ``page_table``.
+
+    Decode / verify (``decode_offset [b]``): token ``j`` of row ``i``
+    lands at position ``clip(offset_i + j, 0, capacity - 1)``, column
+    ``pos % page`` of physical page ``page_table[i, pos // page]`` (an
+    inactive slot's table row is all null pages, so its dead write
+    lands in the garbage page 0). Chunked prefill (``chunk_start
+    [b]``): the chunk spans whole pages, so it drops into its pages
+    with one scatter, as in the JAX package."""
+    dev = page_table.device
+    pt = page_table.long()
+    if chunk_start is not None:
+        if s % page:
+            raise ValueError(f"chunked prefill length {s} must be a "
+                             f"multiple of kv_page_size {page}")
+        c0 = torch.as_tensor(chunk_start, device=dev).long()
+        pids = torch.gather(pt, 1, (c0 // page)[:, None] + torch.arange(
+            s // page, device=dev)[None, :])
+        return PagedWrite(page_table, pids, None, c0.to(torch.int32))
+    if not torch.is_tensor(decode_offset):
+        raise ValueError("a paged cache takes per-row decode offsets "
+                         "or a chunk start")
+    base = decode_offset.clamp(0, capacity - 1).long()
+    wpos = (base[:, None] + torch.arange(s, device=dev)[None, :]).clamp(
+        0, capacity - 1)
+    return PagedWrite(page_table, torch.gather(pt, 1, wpos // page),
+                      wpos % page, base.to(torch.int32))
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -233,7 +317,8 @@ class TransformerDecoderLayer(nn.Module):
         self.linear2 = nn.Linear(cfg.ffn_hidden_size, cfg.hidden_size)
 
     def forward(self, x, attn_bias=None, kv=None, cache_rows=None,
-                decode_offset=None, dropout_seed=None) -> torch.Tensor:
+                decode_offset=None, dropout_seed=None,
+                paged=None) -> torch.Tensor:
         """One block; the cache arguments are
         :meth:`MultiHeadAttention.forward`'s, ``dropout_seed`` the
         block's (None: no dropout)."""
@@ -244,7 +329,7 @@ class TransformerDecoderLayer(nn.Module):
             return fold_seed(dropout_seed, site) if drop else None
 
         y = self.self_attn(self.norm1(x), attn_bias, kv, cache_rows,
-                           decode_offset, seed(0))
+                           decode_offset, seed(0), paged)
         x = x + hidden_dropout(y, rate, seed(1))
         with _site("mlp1"):
             y = self.linear1(self.norm2(x))
@@ -293,10 +378,17 @@ class GPTModel(nn.Module):
                 cache: Optional[KVCache] = None,
                 cache_rows: Optional[torch.Tensor] = None,
                 decode_offset: Union[int, torch.Tensor, None] = None,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                page_table: Optional[torch.Tensor] = None,
+                chunk_start: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """Hidden states ``[b, s, hidden]`` after the final norm (cache
         arguments as in :meth:`MultiHeadAttention.forward`; ``cache``
-        is one ``(k, v)`` pair per layer). ``dropout_seed`` turns the
+        is one ``(k, v)`` pair per layer, the page pools with a
+        ``page_table [b, max_pages]``, through which the tokens land at
+        ``decode_offset [b]`` or, a page-aligned prefill chunk, at
+        ``chunk_start [b]``: :func:`page_write` resolves them once for
+        every layer). ``dropout_seed`` turns the
         configured dropout on (training); with ``use_recompute`` and
         gradients enabled each block runs under activation
         checkpointing."""
@@ -315,6 +407,9 @@ class GPTModel(nn.Module):
                            fold_seed(dropout_seed, 0) if drop else None)
         recompute = cfg.use_recompute and cache is None and \
             torch.is_grad_enabled()
+        paged = None if page_table is None else page_write(
+            page_table, s, cache[0][0].shape[2],
+            cfg.cache_capacity, decode_offset, chunk_start)
         for i, layer in enumerate(self.decoder):
             seed = fold_seed(dropout_seed, i + 1) if drop else None
             if recompute:
@@ -325,7 +420,7 @@ class GPTModel(nn.Module):
             else:
                 x = layer(x, attn_bias,
                           cache[i] if cache is not None else None,
-                          cache_rows, decode_offset, seed)
+                          cache_rows, decode_offset, seed, paged)
         return self.final_norm(x)
 
 
@@ -349,11 +444,12 @@ class GPTForPretraining(nn.Module):
 
     def forward(self, input_ids, position_ids=None, attn_bias=None,
                 cache=None, cache_rows=None, decode_offset=None,
-                dropout_seed=None) -> torch.Tensor:
+                dropout_seed=None, page_table=None,
+                chunk_start=None) -> torch.Tensor:
         """Logits ``[b, s, vocab]`` (arguments as in
         :meth:`GPTModel.forward`)."""
         x = self.gpt(input_ids, position_ids, attn_bias, cache, cache_rows,
-                     decode_offset, dropout_seed)
+                     decode_offset, dropout_seed, page_table, chunk_start)
         return tied_logits(x, self.word_embeddings)
 
 
@@ -447,6 +543,21 @@ def build_model(cfg: GPTConfig, device: torch.device,
     if train:
         return model.float().train()
     return model.to(compute_dtype(cfg)).eval()
+
+
+def init_kv_pool(cfg: GPTConfig, device: torch.device) -> KVCache:
+    """A zeroed paged pool: per layer a ``(k, v)`` pair of
+    ``[kv_pool_pages, heads, kv_page_size, head_dim]`` in the compute
+    dtype (``cfg`` must carry ``kv_page_size`` / ``kv_pool_pages``)."""
+    if not cfg.kv_page_size or not cfg.kv_pool_pages:
+        raise ValueError("init_kv_pool needs kv_page_size and "
+                         "kv_pool_pages")
+    shape = (cfg.kv_pool_pages, cfg.num_attention_heads, cfg.kv_page_size,
+             cfg.head_dim)
+    dtype = compute_dtype(cfg)
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.num_layers)]
 
 
 def init_kv_cache(cfg: GPTConfig, batch: int, device: torch.device

@@ -18,19 +18,35 @@ dot_product_attention``, with its counter names
   tick) take ``flash_decode_ragged`` (``attention/flash_decode_ragged``),
   one shared offset plus a per-key bias (the lockstep ``generate()``)
   takes ``flash_decode`` (``attention/flash_decode``);
+- ``use_flash``, per-row offsets and a window of ``1 < W <= 32``
+  queries against the contiguous cache (the speculative verify) ->
+  kernel 5, ``flash_decode_verify``
+  (``attention/flash_decode_ragged_verify``, the JAX counter of
+  ``flash_decode_ragged`` with ``sq > 1``);
+- ``use_flash`` and a ``page_table`` (``k/v`` are the paged pool
+  ``[P, h, page, d]``): one query token with per-row offsets -> kernel
+  6a, ``flash_decode_paged`` (``attention/flash_decode_paged``); a
+  window of ``1 < W <= 32`` -> kernel 6b, ``flash_decode_paged_verify``
+  (``attention/flash_decode_paged_verify``); every other paged shape
+  (the page-sized chunks of a chunked prefill) gathers the rows'
+  pages back into a contiguous cache and takes the dense path
+  (``attention/fallback/kv_cache_layout`` + ``attention/dense``), as
+  the JAX package does: that is the reference's own route for those
+  shapes, not a retreat from a kernel;
 - ``use_flash=False`` -> the dense PyTorch path below
   (``attention/fallback/flash_disabled`` + ``attention/dense``), as the
   JAX package does; it drops probabilities with the same Philox mask
   as the kernel (``ops/cuda/philox.py``), so both paths compare. That
   is a configuration choice: the port never
   takes the dense path because a kernel refused or failed, and
-  attention shapes the kernels do not take (a multi-token window
-  against the cache) raise ``NotImplementedError``.
+  attention shapes the kernels do not take (a window with a shared
+  offset or a bias against the contiguous cache) raise
+  ``NotImplementedError``.
 
 Layout: ``q [b, sq, h, d]``; ``k/v [b, skv, h, d]``, or with
-``kv_cache_layout`` the cache ``[b, h, S, d]`` (the port's cache
-layout; the JAX package keeps ``[b, h, d, S]``). Output
-``[b, sq, h, d]``.
+``kv_cache_layout`` the cache ``[b, h, S, d]`` or, with a page table,
+the pool ``[P, h, page, d]`` (the port's layouts; the JAX package keeps
+``[b, h, d, S]`` and ``[P, h, d, page]``). Output ``[b, sq, h, d]``.
 """
 
 from __future__ import annotations
@@ -92,7 +108,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           use_flash: bool = True,
                           kv_cache_layout: bool = False,
                           dropout_rate: float = 0.0,
-                          dropout_seed: Optional[int] = None
+                          dropout_seed: Optional[int] = None,
+                          page_table: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Causal attention through the port's kernels (see the module
     docstring for the dispatch and its counters).
@@ -100,39 +117,71 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Args:
         q (torch.Tensor): ``[b, sq, h, d]``.
         k (torch.Tensor): ``[b, skv, h, d]``, or the cache
-            ``[b, h, S, d]`` with ``kv_cache_layout``; ``v`` likewise.
+            ``[b, h, S, d]`` with ``kv_cache_layout``, or the pool
+            ``[P, h, page, d]`` with a ``page_table``; ``v`` likewise.
         bias (torch.Tensor): additive, broadcastable to
             ``[b, h, sq, skv]``; on the decode path a per-key
             ``[b, 1, 1, S]`` bias.
         causal (bool): causal mask (query ``i`` sees keys
             ``<= i + query_offset``).
         query_offset: int, or a ``[b]`` int32 tensor of per-row
-            offsets (ragged decode).
+            offsets (ragged decode, verify, chunked prefill).
         use_flash (bool): the config's ``use_flash_attention``.
         kv_cache_layout (bool): k/v are the KV cache.
         dropout_rate (float): attention-probability dropout (training
             only: callers pass 0 in eval and generation).
         dropout_seed (int): the seed of the dropout mask.
+        page_table (torch.Tensor): ``[b, max_pages]`` int32 physical
+            page ids of each row's logical pages (requires
+            ``kv_cache_layout``).
 
     Returns:
         ``[b, sq, h, d]`` in q's dtype.
     """
+    ragged = torch.is_tensor(query_offset) and query_offset.dim() == 1
+    if page_table is not None and not kv_cache_layout:
+        raise ValueError("page_table requires kv_cache_layout")
     if not use_flash:
         metrics.inc("attention/fallback/flash_disabled")
         metrics.inc("attention/dense")
+        if page_table is not None:
+            k = fa.gather_kv_pages(k, page_table)
+            v = fa.gather_kv_pages(v, page_table)
         return dense_attention(q, k, v, bias, causal, query_offset,
                                kv_cache_layout, dropout_rate, dropout_seed)
-    ragged = torch.is_tensor(query_offset) and query_offset.dim() == 1
+    window = q.shape[1]
     if kv_cache_layout:
         if dropout_rate > 0.0:
             raise NotImplementedError(
                 "attention dropout is a training feature; the decode "
-                "kernel takes none")
-        if not causal or q.shape[1] != 1:
+                "kernels take none")
+        verify = causal and ragged and bias is None and \
+            1 < window <= fa.MAX_VERIFY_WINDOW
+        if page_table is not None:
+            if causal and ragged and bias is None and window == 1:
+                metrics.inc("attention/flash_decode_paged")
+                return fa.flash_decode_paged(q, k, v, query_offset,
+                                             page_table)
+            if verify:
+                metrics.inc("attention/flash_decode_paged_verify")
+                return fa.flash_decode_paged_verify(q, k, v, query_offset,
+                                                    page_table)
+            # chunked prefill (page-sized windows) and other paged
+            # shapes: the JAX package's gather + dense route
+            metrics.inc("attention/fallback/kv_cache_layout")
+            metrics.inc("attention/dense")
+            return dense_attention(q, fa.gather_kv_pages(k, page_table),
+                                   fa.gather_kv_pages(v, page_table),
+                                   bias, causal, query_offset,
+                                   kv_cache_layout=True)
+        if verify:
+            metrics.inc("attention/flash_decode_ragged_verify")
+            return fa.flash_decode_verify(q, k, v, query_offset)
+        if not causal or window != 1:
             raise NotImplementedError(
-                "the port's decode kernel takes one causal query token "
-                "against the cache; multi-token windows (speculative "
-                "verify, chunked prefill) are not ported")
+                "the port's decode kernels take one causal query token, "
+                f"or a window of up to {fa.MAX_VERIFY_WINDOW} with per-row "
+                "offsets and no bias, against the contiguous cache")
         if ragged:
             if bias is not None:
                 raise NotImplementedError(

@@ -47,6 +47,12 @@ SIGNATURES = {
                       _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
     "pfx_flash_decode": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F,
                          _I, _P],
+    "pfx_flash_decode_verify": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _I, _P],
+    "pfx_flash_decode_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _F, _I, _P],
+    "pfx_flash_decode_paged_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _F, _I, _P],
     "pfx_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
     "pfx_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -18,6 +18,19 @@
   (``flash_attention.py:1055``): one query per row against the KV
   cache, keys ``0..offset`` (one shared offset plus a per-key bias, or
   one offset per row).
+- :func:`flash_decode_verify` launches kernel 5, the port of
+  ``_verify_kernel`` (``:1140``):
+  a window of ``1 < W <= 32`` queries per row at positions
+  ``offset + j``, the speculative verify.
+- :func:`flash_decode_paged` and :func:`flash_decode_paged_verify`
+  launch kernels 6a and 6b, the ports of ``_paged_decode_kernel``
+  (``:1422``) and ``_paged_verify_kernel`` (``:1433``): the same
+  through a page table over a ``[P, h, page, d]`` page pool.
+
+  The four decode kernels are one templated body; on the card verify
+  query ``j`` equals kernel 2 at offset ``offset + j`` and the paged
+  kernels equal the contiguous ones on the gathered cache, bit for
+  bit.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream and raises
@@ -25,14 +38,17 @@ if the launch returns a CUDA error. On tensors that lie on the CPU it
 runs the plain PyTorch version from this module instead
 (:func:`flash_attention_reference`,
 :func:`flash_attention_backward_reference`,
-:func:`flash_decode_reference`); on CUDA tensors it launches the kernel
-or raises — there is no fallback from a launch to the plain version.
-Each kernel counts its launches in a plain integer:
-``flash_attention.launches`` (kernel 1),
+:func:`flash_decode_reference`, :func:`flash_decode_paged_reference`);
+on CUDA tensors it launches the kernel or raises — there is no fallback
+from a launch to the plain version. Each kernel counts its launches in
+a plain integer: ``flash_attention.launches`` (kernel 1),
 ``flash_attention_backward.launches_dkv`` (kernel 3),
-``flash_attention_backward.launches_dq`` (kernel 4) and
-``flash_decode.launches`` (kernel 2, both entry points), so a run can
-show that its main path went through the kernels.
+``flash_attention_backward.launches_dq`` (kernel 4),
+``flash_decode.launches`` (kernel 2, both one-query entry points),
+``flash_decode_verify.launches`` (kernel 5),
+``flash_decode_paged.launches`` (kernel 6a) and
+``flash_decode_paged_verify.launches`` (kernel 6b), so a run can show
+that its main path went through the kernels.
 
 The gradient of :func:`flash_attention` is wired through
 ``torch.library.custom_op`` (``pfx::flash_attention``), so activation
@@ -41,10 +57,11 @@ checkpointing can name the op and keep its outputs (O, lse): under the
 forward kernel. The bias is a mask and gets no gradient, as in the JAX
 package (``flash_attention.py:932-934``).
 
-Cache layout: the port's KV cache is ``[b, h, S, d]``. The TPU cache
-``[b, h, d, S]`` was a TPU tiling choice (``ops/attention.py:11-15`` of
-the JAX package); here a key's ``d`` values are contiguous, which is
-what the decode kernel's 16-byte loads want.
+Cache layout: the port's KV cache is ``[b, h, S, d]`` and its page
+pool ``[P, h, page, d]``. The TPU's ``[b, h, d, S]`` / ``[P, h, d,
+page]`` were a TPU tiling choice (``ops/attention.py:11-15`` of the JAX
+package); here a key's ``d`` values are contiguous, which is what the
+decode kernels' 16-byte loads want.
 """
 
 from __future__ import annotations
@@ -414,25 +431,38 @@ flash_attention_backward.launches_dkv = 0
 flash_attention_backward.launches_dq = 0
 
 
+#: widest query window the decode kernels take (the JAX package's
+#: ``MAX_VERIFY_WINDOW``): a speculative verify of up to 31 drafts
+MAX_VERIFY_WINDOW = 32
+
+
 def flash_decode_reference(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, offsets,
                            bias: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`flash_decode` /
-    :func:`flash_decode_ragged`, in fp32.
+    """Plain PyTorch version of every decode kernel on a contiguous
+    cache (:func:`flash_decode`, :func:`flash_decode_ragged`,
+    :func:`flash_decode_verify`), in fp32. A window is its queries
+    decoded one by one: query ``j`` of row ``i`` is the one-query
+    version at offset ``offset_i + j``, the property the verify kernel
+    keeps bit for bit.
 
     Args:
-        q (torch.Tensor): ``[b, 1, h, d]``.
+        q (torch.Tensor): ``[b, W, h, d]`` (``W = 1``: plain decode).
         k (torch.Tensor): the cache ``[b, h, S, d]``; ``v`` likewise.
-        offsets: last live position, an int for every row or a ``[b]``
-            integer tensor.
+        offsets: the first query's last live position, an int for every
+            row or a ``[b]`` integer tensor.
         bias (torch.Tensor): per-key additive bias ``[b, 1, 1, S]`` or
             ``[b, S]``, added before the mask.
 
     Returns:
-        ``[b, 1, h, d]`` in q's dtype.
+        ``[b, W, h, d]`` in q's dtype.
     """
-    b, _, h, d = q.shape
+    b, w, h, d = q.shape
+    if w > 1:
+        return torch.cat([flash_decode_reference(
+            q[:, j:j + 1].contiguous(), k, v, offsets + j, bias)
+            for j in range(w)], dim=1)
     S = k.shape[2]
     s = torch.einsum("bhd,bhsd->bhs", q.float()[:, 0], k.float()) * d ** -0.5
     if bias is not None:
@@ -450,13 +480,59 @@ def flash_decode_reference(q: torch.Tensor, k: torch.Tensor,
     return out[:, None].to(q.dtype)
 
 
-def _check_decode(q, k, v) -> None:
-    if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or \
+def gather_kv_pages(pool: torch.Tensor,
+                    page_table: torch.Tensor) -> torch.Tensor:
+    """A paged pool ``[P, h, page, d]`` read through ``page_table
+    [b, max_pages]`` back into the contiguous ``[b, h, max_pages * page,
+    d]`` cache, each row's logical positions in order (the port of the
+    JAX package's ``ops/attention.py::_gather_kv_pages``). It
+    materializes every row at full capacity: the plain versions' and
+    the dense path's read, never a kernel's."""
+    g = pool[page_table.long()]                 # [b, m, h, page, d]
+    b, m, h, page, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, m * page, d)
+
+
+def flash_decode_paged_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, offsets: torch.Tensor,
+                                 page_table: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_decode_paged` and
+    :func:`flash_decode_paged_verify`: gather each row's pages
+    (:func:`gather_kv_pages`), then :func:`flash_decode_reference`."""
+    return flash_decode_reference(q, gather_kv_pages(k, page_table),
+                                  gather_kv_pages(v, page_table), offsets)
+
+
+def _check_decode(q, k, v, windows=range(1, 2)) -> None:
+    if q.dim() != 4 or q.shape[1] not in windows or k.dim() != 4 or \
             k.shape != v.shape or k.shape[0] != q.shape[0] or \
             k.shape[1] != q.shape[2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} must be "
-                         f"[b, 1, h, d] and k/v {tuple(k.shape)} the cache "
-                         f"[b, h, S, d]")
+                         f"[b, W, h, d] with W in {windows} and k/v "
+                         f"{tuple(k.shape)} the cache [b, h, S, d]")
+
+
+def _check_paged(q, k, v, page_table, windows=range(1, 2)) -> None:
+    if q.dim() != 4 or q.shape[1] not in windows or \
+            k.dim() != 4 or k.shape != v.shape or \
+            k.shape[1] != q.shape[2] or k.shape[3] != q.shape[3] or \
+            page_table.dim() != 2 or page_table.shape[0] != q.shape[0]:
+        raise ValueError(f"flash_decode_paged: q {tuple(q.shape)} must be "
+                         f"[b, W, h, d] with W in {windows}, the pool "
+                         f"{tuple(k.shape)} [P, h, page, d] and the page "
+                         f"table {tuple(page_table.shape)} [b, max_pages]")
+
+
+def _check_offsets(name, offsets, b) -> None:
+    if offsets.dtype != torch.int32 or offsets.shape != (b,):
+        raise ValueError(f"{name}: offsets must be int32 [{b}], got "
+                         f"{offsets.dtype} {tuple(offsets.shape)}")
+
+
+def _launch_rc(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with "
+                           f"cudaError {rc}")
 
 
 def _launch_decode(q, k, v, offsets: Optional[torch.Tensor],
@@ -465,15 +541,9 @@ def _launch_decode(q, k, v, offsets: Optional[torch.Tensor],
     """Launch kernel 2 (either entry point) and count the launch."""
     b, _, h, d = q.shape
     S = k.shape[2]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_decode: dtype {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; the kernel takes bf16 or fp32")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_decode: head_dim {d} not in {_HEAD_DIMS}")
-    if offsets is not None and (offsets.dtype != torch.int32 or
-                                offsets.shape != (b,)):
-        raise ValueError(f"flash_decode_ragged: offsets must be int32 "
-                         f"[{b}], got {offsets.dtype} {tuple(offsets.shape)}")
+    _check_kernel_inputs("flash_decode", q, k, v)
+    if offsets is not None:
+        _check_offsets("flash_decode_ragged", offsets, b)
     if bias is not None:
         if bias.numel() != b * S:
             raise ValueError(f"flash_decode: bias {tuple(bias.shape)} is "
@@ -491,9 +561,7 @@ def _launch_decode(q, k, v, offsets: Optional[torch.Tensor],
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), b, h, S, d, d ** -0.5,
             int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_decode: kernel launch failed with "
-                           f"cudaError {rc}")
+    _launch_rc("flash_decode", rc)
     flash_decode.launches += 1
     return out
 
@@ -522,13 +590,119 @@ flash_decode.launches = 0
 
 def flash_decode_ragged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         offsets: torch.Tensor) -> torch.Tensor:
-    """One decode step with per-row offsets (kernel 2, the serving
-    tick): row ``i`` of ``q [b, 1, h, d]`` attends to positions
+    """Decode with per-row offsets over the contiguous cache, the
+    serving tick: row ``i`` of ``q [b, 1, h, d]`` attends to positions
     ``<= offsets[i]`` of its own cache row and walks no further, so a
     short slot never pays for a long one. ``offsets`` is a ``[b]`` int32
-    tensor on q's device. Launches count in ``flash_decode.launches``.
+    tensor on q's device. Launches kernel 2 (counted in
+    ``flash_decode.launches``); the window is :func:`flash_decode_verify`.
     """
     _check_decode(q, k, v)
     if _on_cpu(q, k, v, offsets):
         return flash_decode_reference(q, k, v, offsets)
     return _launch_decode(q, k, v, offsets, 0, None)
+
+
+def flash_decode_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """The speculative verify window over the contiguous cache (kernel
+    5, ``csrc/flash_decode.cu``): query ``j`` of row ``i`` of ``q [b, W,
+    h, d]`` (``1 < W <= 32``) sits at position ``offsets[i] + j`` and
+    attends to keys ``<= offsets[i] + j`` of ``k/v [b, h, S, d]``. On the
+    card query ``j`` equals kernel 2 at offset ``offsets[i] + j`` bit for
+    bit. On CPU tensors the plain version runs; on CUDA tensors the
+    kernel launches (``flash_decode_verify.launches``) or this raises.
+    """
+    _check_decode(q, k, v, range(2, MAX_VERIFY_WINDOW + 1))
+    if _on_cpu(q, k, v, offsets):
+        return flash_decode_reference(q, k, v, offsets)
+    b, w, h, d = q.shape
+    S = k.shape[2]
+    _check_kernel_inputs("flash_decode_verify", q, k, v)
+    _check_offsets("flash_decode_verify", offsets, b)
+    _check_cuda("flash_decode_verify", q, k, v, offsets)
+    out = torch.empty_like(q)
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.pfx_flash_decode_verify(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), b, w, h, S, d, d ** -0.5,
+            int(q.dtype == torch.bfloat16), stream)
+    _launch_rc("flash_decode_verify", rc)
+    flash_decode_verify.launches += 1
+    return out
+
+
+flash_decode_verify.launches = 0
+
+
+def _launch_paged(name: str, q, k, v, offsets, page_table, dims
+                  ) -> torch.Tensor:
+    """Launch kernel 6a or 6b through its C entry point ``pfx_<name>``,
+    whose leading sizes are ``dims``."""
+    b, _, _, d = q.shape
+    _check_kernel_inputs(name, q, k, v)
+    _check_offsets(name, offsets, b)
+    if page_table.dtype != torch.int32:
+        raise ValueError(f"{name}: page_table must be int32, got "
+                         f"{page_table.dtype}")
+    _check_cuda(name, q, k, v, offsets, page_table)
+    out = torch.empty_like(q)
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, "pfx_" + name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(),
+            page_table.data_ptr(), out.data_ptr(), *dims, k.shape[2],
+            page_table.shape[1], d, d ** -0.5,
+            int(q.dtype == torch.bfloat16), stream)
+    _launch_rc(name, rc)
+    return out
+
+
+def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       offsets: torch.Tensor,
+                       page_table: torch.Tensor) -> torch.Tensor:
+    """Decode through a paged KV pool (kernel 6a; the window is
+    :func:`flash_decode_paged_verify`): row ``i`` of ``q [b, 1, h, d]``
+    attends to positions ``<= offsets[i]`` of its logical cache, whose
+    logical page ``j`` is physical page
+    ``page_table[i, j]`` of the pool ``k/v [P, h, page, d]`` (the port's
+    page layout; the JAX pool is ``[P, h, d, page]``). ``offsets`` is a
+    ``[b]`` int32 tensor and ``page_table`` a ``[b, max_pages]`` int32
+    tensor, both on q's device. On the card the result equals kernel 2
+    on the gathered cache bit for bit. On CPU tensors the plain version
+    (:func:`flash_decode_paged_reference`) runs; on CUDA tensors the
+    kernel launches (``flash_decode_paged.launches``) or this raises.
+    """
+    _check_paged(q, k, v, page_table)
+    if _on_cpu(q, k, v, offsets, page_table):
+        return flash_decode_paged_reference(q, k, v, offsets, page_table)
+    out = _launch_paged("flash_decode_paged", q, k, v, offsets, page_table,
+                        (q.shape[0], q.shape[2]))
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0
+
+
+def flash_decode_paged_verify(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, offsets: torch.Tensor,
+                              page_table: torch.Tensor) -> torch.Tensor:
+    """The speculative verify window through a paged pool (kernel 6b):
+    :func:`flash_decode_verify`'s within-window causal mask over
+    :func:`flash_decode_paged`'s addressing, ``1 < W <= 32``. On the
+    card it equals kernel 5 on the gathered cache bit for bit. Launches
+    count in ``flash_decode_paged_verify.launches``."""
+    _check_paged(q, k, v, page_table, range(2, MAX_VERIFY_WINDOW + 1))
+    if _on_cpu(q, k, v, offsets, page_table):
+        return flash_decode_paged_reference(q, k, v, offsets, page_table)
+    out = _launch_paged("flash_decode_paged_verify", q, k, v, offsets,
+                        page_table, q.shape[:3])
+    flash_decode_paged_verify.launches += 1
+    return out
+
+
+flash_decode_paged_verify.launches = 0

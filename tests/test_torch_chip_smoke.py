@@ -62,10 +62,14 @@ def shims(monkeypatch):
     ragged = fa.flash_decode_ragged
 
     def ragged_shim(*args, **kwargs):
+        # kernel 2's second entry point counts in flash_decode.launches
         decode.launches += 1
         return ragged(*args, **kwargs)
     monkeypatch.setattr(fa, "flash_decode", decode)
     monkeypatch.setattr(fa, "flash_decode_ragged", ragged_shim)
+    for name in ("flash_decode_paged", "flash_decode_verify",
+                 "flash_decode_paged_verify"):
+        monkeypatch.setattr(fa, name, _counting(getattr(fa, name)))
     yield
     metrics.get_registry().reset()
     metrics.set_enabled(False)
@@ -238,3 +242,182 @@ def test_exits_nonzero_without_cuda(tmp_path, alone):
                           text=True, timeout=300, cwd=tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+#: the headline trace cut to the tiny model: capacity 256 (two 128-token
+#: pages a slot), prefill chunks of one page
+TINY_HEADLINE = {"requests": 6, "slots": 3, "lo": 5, "hi": 100,
+                 "max_dec_len": 8, "page": 128, "pool_pages": 5,
+                 "prefill_chunk_pages": 1, "spec_tokens": 2, "seed": 0,
+                 "contiguous_spec_slots": 2}
+#: a tiny model with the 345M recipe's capacity (1024: eight pages a
+#: slot), for the parity phase's 256-token shared prefix
+TINY_1024 = TINY[:-1] + ["Model.max_position_embeddings=1024"]
+
+
+def test_paged_serving_phases_run_at_tiny_size(shims, capsys, monkeypatch):
+    """The paged and speculative serving phases at a tiny size: each
+    prints its line, the counts show the paged, verify and paged-verify
+    kernels ran once per layer a tick and the prefill chunks took the
+    gather + dense route, and the drained pools are whole."""
+    monkeypatch.setattr(chip_smoke, "HEADLINE", TINY_HEADLINE)
+    paged, module = chip_smoke.phase_serve_paged("cpu", TINY)
+    assert paged["launches"]["flash_decode_paged"] == \
+        paged["decode_ticks"] * 2 > 0
+    assert paged["counters"]["attention/dense"] == \
+        paged["counters"]["attention/fallback/kv_cache_layout"] == \
+        paged["prefill_chunks"] * 2
+    spec_paged, spec_contig = chip_smoke.phase_serve_spec(module, "cpu")
+    assert spec_paged["launches"]["flash_decode_paged_verify"] == \
+        spec_paged["decode_ticks"] * 2 > 0
+    assert spec_contig["launches"]["flash_decode_verify"] == \
+        spec_contig["decode_ticks"] * 2 > 0
+    assert spec_contig["slots"] == 2 and not spec_contig["paged"]
+    assert 0.0 <= spec_paged["spec_accept_rate"] <= 1.0
+    chip_smoke.phase_serve_cli("cpu", TINY_1024 + ["Model.kv_pool_pages=9"],
+                               paged_spec=True)
+    lines = {}
+    for d in _lines(capsys):
+        lines.setdefault(d.get("phase"), []).append(d)
+    assert len(lines["serve_paged"]) == 1 and len(lines["serve_spec"]) == 2
+    assert "serve_cli_paged_spec" in lines
+    window = {p: [_window_case(p, w)] for p, w in (
+        ("kernel_paged", 1), ("kernel_verify", 5),
+        ("kernel_paged_verify", 5))}
+    serve = {"launches": {"flash_attention": 10, "flash_decode": 12}}
+    case = {"dtype": "bfloat16", "tol": 2e-2, "max_abs_err": 1e-3,
+            "ms": 0.1, "call_ms": 0.2, "plain_ms": 1.0, "library_ms": 0.05,
+            "bound_ms": 0.01, "bound_by": "bytes", "b": 1, "h": 16,
+            "s": 512, "d": 64, "bias": False, "rel_l2": 3e-3,
+            "rel_l2_planted": 0.1, "S": 1024}
+    bwd = {"regime": "combined", "dtype": "bfloat16", "b": 8, "h": 16,
+           "s": 1024, "d": 64, "bias": False, "dropout": 0.1,
+           "max_abs_err": {"dq": 0.01, "dk": 0.02, "dv": 0.03},
+           "grad_scale": 6.0, "tol": 1e-2, "tol_kind": "relative",
+           "plain_ms": 9.0, "library_ms": 1.0, "ms_dkv": 2.0,
+           "call_ms_dkv": 2.1, "ms_dq": 1.5, "call_ms_dq": 1.6,
+           "bound_ms_dkv": 0.4, "bound_by_dkv": "operations",
+           "bound_ms_dq": 0.3, "bound_by_dq": "operations",
+           "bound_ms_both": 0.5, "bound_by_both": "operations",
+           "rel_l2": {"dq": 4e-3, "dk": 5e-3, "dv": 3e-3},
+           "rel_l2_planted": {"dq": 0.2, "dk": 0.1, "dv": 0.3}}
+    train = {"launches": {"flash_attention": 4, "flash_bwd_dkv": 4,
+                          "flash_bwd_dq": 4}}
+    line = chip_smoke.kernels_line([case], [case], serve, [], [bwd], train,
+                                   window, paged, (spec_paged, spec_contig))
+    rows = {k["name"]: k for k in line["kernels"]}
+    assert list(rows) == ["flash_attention", "flash_decode",
+                          "flash_bwd_dkv", "flash_bwd_dq",
+                          "flash_decode_paged", "flash_decode_verify",
+                          "flash_decode_paged_verify"]
+    for row in rows.values():
+        assert KERNEL_KEYS <= set(row)
+    assert rows["flash_decode_paged"]["launches"] == \
+        paged["launches"]["flash_decode_paged"]
+    assert rows["flash_decode_verify"]["launches_by_path"] == {
+        "serve_spec_contiguous": spec_contig["launches"][
+            "flash_decode_verify"]}
+    assert rows["flash_decode_paged_verify"]["replaces"].endswith(":1433")
+    assert rows["flash_decode_verify"]["replaces"].endswith(":1140")
+    assert rows["flash_decode_paged"]["replaces"].endswith(":1422")
+    assert all(rows[n]["exact_max_abs_err"] == 0.0 for n in (
+        "flash_decode_paged", "flash_decode_verify",
+        "flash_decode_paged_verify"))
+
+
+def _window_case(phase, window):
+    return {"kind": phase, "dtype": "bfloat16", "b": 16, "h": 16, "d": 64,
+            "window": window, "capacity": 1024, "page": 128,
+            "max_abs_err": 4e-3, "tol": 2e-2, "rel_l2": 2e-3,
+            "rel_l2_planted": 1.0, "exact_vs": "kernel 2",
+            "exact_max_abs_err": 0.0, "ms": 0.02, "call_ms": 0.05,
+            "counterpart_ms": 0.015, "plain_ms": 0.3, "library_ms": 0.04,
+            "library_computes": "SDPA", "bound_ms": 0.008,
+            "bound_by": "bytes"}
+
+
+def test_parity_paged_phase_runs_at_tiny_size(shims, capsys):
+    """Five ways to serve four prompts sharing a 256-token prefix give
+    the lockstep rows in fp32, also with a pool small enough to preempt;
+    the bf16 pass prints its equal-row share."""
+    with one_thread():
+        records = chip_smoke.phase_parity_paged("cpu", TINY_1024,
+                                                max_dec_len=24)
+    fp32, bf16 = records
+    assert fp32["dtype"] == "float32" and bf16["dtype"] == "bfloat16"
+    assert set(fp32["rows_equal"].values()) == {4}
+    assert fp32["counts"]["paged_preempted"]["preempted"] > 0
+    assert fp32["counts"]["paged_preempted"]["prefix_hits"] >= 1
+    assert "rows_equal_share" in bf16 and "first_divergence" in bf16
+    assert [d["phase"] for d in _lines(capsys)].count("parity_paged") == 2
+
+
+def test_decode_kernel_checks_hold_what_they_say(monkeypatch):
+    """The kernel phase's checks on the CPU (the wrappers run their plain
+    versions): the exact checks pass when the kernel is what it claims,
+    and a verify kernel off by one ulp in one query (within every
+    tolerance) or a paged kernel that reads a null page fails them."""
+    import torch
+    case = chip_smoke.decode_window_case(fa, torch, "verify", torch.float32,
+                                         5, 3, n_sets=1, device="cpu")
+    assert case["exact_max_abs_err"] == 0.0 and case["ms"] is None
+    assert case["exact_vs"].startswith("kernel 2 at offset")
+    verify = fa.flash_decode_verify
+
+    def off_by_an_ulp(q, k, v, offsets):
+        out = verify(q, k, v, offsets).clone()
+        out[0, 2, 0, 0] = torch.nextafter(out[0, 2, 0, 0],
+                                          torch.tensor(1e9))
+        return out
+    monkeypatch.setattr(fa, "flash_decode_verify", off_by_an_ulp)
+    with pytest.raises(AssertionError, match="the design makes them equal"):
+        chip_smoke.decode_window_case(fa, torch, "verify", torch.float32,
+                                      5, 3, n_sets=1, device="cpu")
+    monkeypatch.undo()
+    paged = fa.flash_decode_paged
+
+    def reads_null_pages(q, k, v, offsets, pt):
+        return paged(q, k, v, torch.full_like(offsets, 1023), pt)
+    monkeypatch.setattr(fa, "flash_decode_paged", reads_null_pages)
+    with pytest.raises(AssertionError, match="plain version"):
+        chip_smoke.decode_window_case(fa, torch, "paged", torch.float32,
+                                      1, 3, n_sets=1, device="cpu")
+
+
+def test_paged_launch_check_catches_wrong_routes(shims):
+    summary = {"decode_ticks": 3, "prefill_chunks": 2, "paged": True,
+               "admitted": 2}
+    good = {"flash_attention": 0, "flash_decode": 0,
+            "flash_decode_verify": 0, "flash_decode_paged": 6,
+            "flash_decode_paged_verify": 0,
+            "counters": {"attention/dense": 4,
+                         "attention/fallback/kv_cache_layout": 4}}
+    chip_smoke.check_paged_counts(good, summary, 2, "t", "flash_decode_paged")
+    bad = dict(good, flash_decode_paged=0)
+    with pytest.raises(AssertionError, match="flash_decode_paged launched"):
+        chip_smoke.check_paged_counts(bad, summary, 2, "t",
+                                      "flash_decode_paged")
+    bad = dict(good, counters=dict(good["counters"], **{
+        "attention/fallback/kernel_rejected": 1}))
+    with pytest.raises(AssertionError, match="fallback"):
+        chip_smoke.check_paged_counts(bad, summary, 2, "t",
+                                      "flash_decode_paged")
+    bad = dict(good, counters={"attention/dense": 6,
+                               "attention/fallback/kv_cache_layout": 6})
+    with pytest.raises(AssertionError, match="dense"):
+        chip_smoke.check_paged_counts(bad, summary, 2, "t",
+                                      "flash_decode_paged")
+
+
+def test_decode_window_bound():
+    # offsets 0 and 3, window 2: rows read 2 and 5 keys; pairs 1+2 and
+    # 4+5; bf16, h 2, d 64, no table
+    ms, by = chip_smoke._paged_bound([0, 3], 2, 2, 64, 16, 2, 0)
+    nbytes = 2 * 2 * 64 * 2 * 7 + 2 * 2 * 2 * 2 * 64 * 2 + 4 * 2
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    # fp32 at window 32 over a 1024 cache: operations nearly bind
+    ms, by = chip_smoke._paged_bound([1000] * 16, 32, 16, 64, 1024, 4, 8)
+    flops = 4.0 * 16 * 64 * 16 * sum(min(1000 + j + 1, 1024)
+                                     for j in range(32))
+    assert ms >= flops / chip_smoke.FP32_CUDA_CORE_FLOPS * 1e3 * 0.999

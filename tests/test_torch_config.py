@@ -58,7 +58,7 @@ def test_fp32_override_gives_fp32_compute():
 
 
 @pytest.mark.parametrize("knob", [
-    {"kv_page_size": 128, "kv_pool_pages": 9},
+    {"kv_page_size": 128, "kv_pool_pages": 9, "kv_cache_dtype": "int8"},
     {"kv_cache_dtype": "int8"},
     {"quant_execution": "weight_only_int8"},
     {"lora_rank": 4, "lora_num_adapters": 2},
@@ -95,3 +95,35 @@ def test_override_semantics():
         get_config(GEN, ["Global.seed.x=1"])
     with pytest.raises(ValueError, match="key=value"):
         get_config(GEN, ["Global.seed"])
+
+
+@pytest.mark.parametrize("paged", [
+    {"kv_page_size": 128, "kv_pool_pages": 9},      # accepted
+    {"kv_page_size": 128, "kv_pool_pages": 2},      # pool < max pages + 1
+    {"kv_page_size": 64, "kv_pool_pages": 9},       # not a 128 multiple
+    {"kv_page_size": 384, "kv_pool_pages": 9},      # does not tile 1024
+    {"kv_pool_pages": 9},                           # pool without a page
+])
+def test_paged_knobs_validate_like_jax(paged):
+    """``kv_page_size`` / ``kv_pool_pages`` are accepted or refused by
+    both packages alike, with the same ``max_kv_pages``."""
+    kw = {"vocab_size": 64, "hidden_size": 32, "num_layers": 1,
+          "num_attention_heads": 2, "max_position_embeddings": 1024,
+          **paged}
+    try:
+        theirs = JaxGPTConfig(**kw)
+    except ValueError as e:
+        with pytest.raises(ValueError) as ours:
+            GPTConfig(**kw)
+        assert str(ours.value) == str(e)
+        return
+    ours = GPTConfig(**kw)
+    assert ours.max_kv_pages == theirs.max_kv_pages == 8
+
+
+def test_paged_recipe_override_reaches_the_config():
+    over = ["Model.kv_page_size=128", "Model.kv_pool_pages=65"]
+    ours = GPTConfig.from_config(get_config(GEN, over))
+    theirs = JaxGPTConfig.from_config(jax_get_config(GEN, over, nranks=1))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.max_kv_pages == 8 and ours.kv_pool_pages == 65

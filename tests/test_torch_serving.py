@@ -148,12 +148,13 @@ def test_counters_and_summary(served):
 
 def test_unported_options_and_bad_requests_raise(served):
     model, _ = served
-    with pytest.raises(NotImplementedError, match="page_size"):
-        GenerationServer(model, _greedy(), page_size=128)
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(NotImplementedError, match="host_pool_bytes"):
+        GenerationServer(model, _greedy(), page_size=128,
+                         host_pool_bytes=1 << 20)
+    with pytest.raises(NotImplementedError, match="device_loop_ticks"):
         GenerationServer(model, gen.GenerationConfig(
             max_dec_len=4, decode_strategy="greedy_search",
-            spec_method="ngram"))
+            spec_method="ngram"), device_loop_ticks=4)
     with pytest.raises(ValueError, match="beam"):
         GenerationServer(model, gen.GenerationConfig(
             max_dec_len=4, decode_strategy="beam_search", num_beams=2))
