@@ -38,6 +38,17 @@ speculative ticks; the ``serve`` entry point with the recipe's paging
 and speculation knobs; and fp32 greedy rows equal across the paged,
 paged speculative, contiguous speculative and contiguous servers and
 the lockstep ``generate()``, also with a pool small enough to preempt.
+Then int8 serving (``kv_cache_dtype: int8``, ``quant_execution:
+weight_only_int8``): the int8 instances of kernels 2, 5, 6a and 6b
+against their plain versions and exactly against kernel 2 / 5's, and
+kernel 7 (the weight-only int8 matmul) at the four 345M dense-site
+shapes; the headline trace with both knobs from an int8 pool of the
+bf16 pool's bytes (122 pages for 65) and short contiguous, contiguous
+speculative and paged speculative arms, each checked from its counts
+(kernel 7 at every dense site, each tick's int8 instance); a profile
+of the int8 paged ticks; the ``serve`` entry point with both knobs;
+and fp32 greedy rows of the int8 servers equal to the int8 lockstep
+``generate()``, with a copy-on-write split and a preemption in the run.
 Each phase prints one JSON object per line;
 the ``kernels`` line and the card's name and power limit come before
 the last line, which is ``{"ok": true, "device": {...}}``. Any failure
@@ -292,93 +303,137 @@ def fwd_case(fa, torch, dtype, b, h, s, d, with_bias, seed, n_sets=4):
 # -- kernel 2: flash decode -------------------------------------------
 
 
-def _decode_bound(offsets, h, S, d, itemsize, has_bias):
+def _decode_bound(offsets, h, S, d, itemsize, has_bias, kv_bytes=None):
     """(bound_ms, bound_by) of one decode call over these offsets: the
-    live K and V rows (plus q, O and the live bias) over HBM, against
-    the products' FLOPs over the peak for the type."""
+    live K and V rows (``kv_bytes`` a key and head, ``2 d itemsize`` by
+    default, ``2 (d + 4)`` for an int8 cache with its scales; plus q, O
+    and the live bias) over HBM, against the products' FLOPs over the
+    peak for the query's type."""
     b = len(offsets)
     live = sum(min(o, S - 1) + 1 for o in offsets)
-    nbytes = 2 * h * d * itemsize * live + 2 * b * h * d * itemsize \
-        + (4 * live if has_bias else 0)
+    nbytes = (kv_bytes or 2 * d * itemsize) * h * live \
+        + 2 * b * h * d * itemsize + (4 * live if has_bias else 0)
     flops = 4.0 * h * d * live
     peak = BF16_TENSOR_FLOPS if itemsize == 2 else FP32_CUDA_CORE_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _int8_cache(torch, shape, g, device, null_page=False):
+    """``(int8 values, fp32 scales)`` of a seeded standard-normal cache
+    or pool of ``shape``, quantized as the model's cache writes are
+    (``model.quantize_kv``: per key and head over d); with ``null_page``
+    the first page holds ``NULL_GARBAGE`` (int8 127 at scale 30/127)."""
+    from paddlefleetx_tpu_torch.models.gpt.model import quantize_kv
+    f = torch.randn(shape, generator=g, device=device)
+    if null_page:
+        f[0] = NULL_GARBAGE
+    return quantize_kv(f)
+
+
+def _widened(t, scale, dtype):
+    """A cache in ``dtype``: as it is, or an int8 one widened with its
+    scales (the library yardstick's input, made before it is timed)."""
+    from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    if scale is None:
+        return t
+    return fa.dequantize_cache(t, scale).to(dtype)
+
+
 def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
-                n_sets=4):
+                n_sets=4, int8=False, device="cuda"):
     """Kernel 2 against its plain version (and SDPA, timed only): the
     ragged entry point over ``offsets``, or with ``shared_bias`` the
     shared-offset entry point at ``max(offsets)`` with a left-pad
-    bias."""
+    bias; with ``int8`` over an int8 cache and its scales (the int8
+    instance). On the CPU (``device``, the tests' rehearsal) the
+    wrappers run their plain versions and nothing is timed."""
     import torch.nn.functional as F
     b = len(offsets)
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    off_t = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device=device).manual_seed(seed)
+    off_t = torch.tensor(offsets, dtype=torch.int32, device=device)
     shared = max(offsets)
     sets = []
     for _ in range(n_sets):
-        q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(dtype)
-        k, v = (torch.randn((b, h, S, d), generator=g, device="cuda")
-                .to(dtype) for _ in range(2))
+        q = torch.randn((b, 1, h, d), generator=g, device=device).to(dtype)
+        if int8:
+            (k, ks), (v, vs) = (_int8_cache(torch, (b, h, S, d), g, device)
+                                for _ in range(2))
+        else:
+            k, v = (torch.randn((b, h, S, d), generator=g, device=device)
+                    .to(dtype) for _ in range(2))
+            ks = vs = None
         bias = None
         if shared_bias:
-            pad = torch.randint(0, 16, (b,), generator=g, device="cuda")
+            pad = torch.randint(0, 16, (b,), generator=g, device=device)
             bias = torch.where(
-                torch.arange(S, device="cuda")[None, :] < pad[:, None],
+                torch.arange(S, device=device)[None, :] < pad[:, None],
                 -1e9, 0.0).to(torch.float32)[:, None, None, :]
-        sets.append((q, k, v, bias))
+        sets.append((q, k, v, bias, ks, vs))
 
     def kernel(i):
-        q, k, v, bias = sets[i]
+        q, k, v, bias, ks, vs = sets[i]
+        sc = {"k_scale": ks, "v_scale": vs} if int8 else {}
         if shared_bias:
-            return fa.flash_decode(q, k, v, shared, bias)
-        return fa.flash_decode_ragged(q, k, v, off_t)
+            return fa.flash_decode(q, k, v, shared, bias, **sc)
+        return fa.flash_decode_ragged(q, k, v, off_t, **sc)
 
     def plain(i, upcast=False):
-        q, k, v, bias = (t.float() if upcast and t is not None else t
-                         for t in sets[i])
+        q, k, v, bias, ks, vs = sets[i]
+        if upcast:
+            q = q.float()
+            if not int8:
+                k, v = k.float(), v.float()
         return fa.flash_decode_reference(
-            q, k, v, shared if shared_bias else off_t, bias)
+            q, k, v, shared if shared_bias else off_t, bias, ks, vs)
 
     out = kernel(0)
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync()
     ref = plain(0, upcast=True)
     err = _max_err(out, ref)
     tol = TOL[str(dtype).split(".")[-1]]
+    what = f"flash_decode ({dtype}, int8 {int8}, shared_bias={shared_bias})"
     if not torch.isfinite(out.float()).all() or err > tol:
         raise AssertionError(
-            f"flash_decode disagrees with its plain version: max abs err "
-            f"{err:.3e} > {tol:.0e} ({dtype}, offsets={offsets}, "
-            f"shared_bias={shared_bias})")
-    rel_l2, planted = _hold_normwise(out, ref, f"flash_decode ({dtype}, "
-                                     f"shared_bias={shared_bias})")
-    ms, call_ms = time_ms(kernel, n_sets)
-    plain_ms, _ = time_ms(plain, n_sets, iters=5)
-    pos = torch.arange(S, device="cuda")
-    offs = torch.full((b,), shared, device="cuda") if shared_bias else off_t
-    mask = (pos[None, :] <= offs[:, None])[:, None, None, :]
-    tsets = []
-    for q, k, v, bias in sets:
-        m = torch.zeros(mask.shape, device="cuda").masked_fill(
-            ~mask, float("-inf"))
-        if bias is not None:
-            m = m + bias
-        tsets.append((q.transpose(1, 2), k, v, m.to(dtype)))
-    library_ms, _ = time_ms(lambda i: F.scaled_dot_product_attention(
-        tsets[i][0], tsets[i][1], tsets[i][2], attn_mask=tsets[i][3]),
-        n_sets)
+            f"{what} disagrees with its plain version: max abs err "
+            f"{err:.3e} > {tol:.0e} (offsets={offsets})")
+    rel_l2, planted = _hold_normwise(out, ref, what)
+    ms = call_ms = plain_ms = library_ms = None
+    if device != "cpu":
+        ms, call_ms = time_ms(kernel, n_sets)
+        plain_ms, _ = time_ms(plain, n_sets, iters=5)
+        pos = torch.arange(S, device=device)
+        offs = torch.full((b,), shared, device=device) if shared_bias \
+            else off_t
+        mask = (pos[None, :] <= offs[:, None])[:, None, None, :]
+        tsets = []
+        for q, k, v, bias, ks, vs in sets:
+            m = torch.zeros(mask.shape, device=device).masked_fill(
+                ~mask, float("-inf"))
+            if bias is not None:
+                m = m + bias
+            tsets.append((q.transpose(1, 2), _widened(k, ks, dtype),
+                          _widened(v, vs, dtype), m.to(dtype)))
+        library_ms, _ = time_ms(lambda i: F.scaled_dot_product_attention(
+            tsets[i][0], tsets[i][1], tsets[i][2], attn_mask=tsets[i][3]),
+            n_sets)
     eff = [shared] * b if shared_bias else list(offsets)
     bound_ms, bound_by = _decode_bound(eff, h, S, d,
                                        sets[0][0].element_size(),
-                                       shared_bias)
-    return {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "S": S,
-            "d": d, "offsets": offsets, "shared_offset_bias": shared_bias,
-            "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
-            "rel_l2_planted": planted, "ms": ms, "call_ms": call_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+                                       shared_bias,
+                                       2 * (d + 4) if int8 else None)
+    rec = {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "S": S,
+           "d": d, "offsets": offsets, "shared_offset_bias": shared_bias,
+           "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
+           "rel_l2_planted": planted, "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if int8:
+        rec.update(kv_cache="int8", library_computes="SDPA over the int8 "
+                   "cache widened to the query dtype beforehand (the "
+                   "widening not counted)")
+    return rec
 
 
 def phase_build():
@@ -464,17 +519,20 @@ def _paged_table(np, offsets, window, page, max_pages, seed):
     return pt, pages
 
 
-def _paged_bound(offsets, window, h, d, cap, itemsize, max_pages):
+def _paged_bound(offsets, window, h, d, cap, itemsize, max_pages,
+                 kv_bytes=None):
     """(bound_ms, bound_by) of one decode-kernel call: the bytes each
     row's live K and V rows (up to its last query) take, read once for
-    all queries, plus q, O, the offsets and the page table (when
-    ``max_pages``), over HBM; against 4 d FLOPs per live (query, key)
-    pair over the peak for the type."""
+    all queries (``kv_bytes`` a key and head: ``2 d itemsize`` by
+    default, ``2 (d + 4)`` for an int8 cache with its scales), plus q,
+    O, the offsets and the page table (when ``max_pages``), over HBM;
+    against 4 d FLOPs per live (query, key) pair over the peak for the
+    query's type."""
     b = len(offsets)
     keys = sum(min(o + window, cap) for o in offsets)
     pairs = sum(min(o + j + 1, cap) for o in offsets for j in range(window))
-    nbytes = 2 * h * d * itemsize * keys + 2 * b * window * h * d * itemsize \
-        + 4 * b + 4 * b * max_pages
+    nbytes = (kv_bytes or 2 * d * itemsize) * h * keys \
+        + 2 * b * window * h * d * itemsize + 4 * b + 4 * b * max_pages
     flops = 4.0 * h * d * pairs
     peak = BF16_TENSOR_FLOPS if itemsize == 2 else FP32_CUDA_CORE_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -482,7 +540,8 @@ def _paged_bound(offsets, window, h, d, cap, itemsize, max_pages):
 
 
 def decode_window_case(fa, torch, kind, dtype, window, seed,
-                       offsets=PAGED_OFFSETS, n_sets=4, device="cuda"):
+                       offsets=PAGED_OFFSETS, n_sets=4, device="cuda",
+                       int8=False):
     """One case of kernel 5 (``kind`` "verify"), 6a ("paged", window 1)
     or 6b ("paged_verify") at the serving shapes: held to its plain
     version (fp32, same inputs) by max abs error and normwise, held
@@ -491,9 +550,11 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
     each verify query ``j`` against kernel 2 at offset ``off + j`` -
     and timed with its plain version, SDPA with a boolean mask over an
     already gathered contiguous cache (the gather not counted), and its
-    bound. Returns the record. On the CPU (``device``, the tests'
-    rehearsal) the wrappers run their plain versions, nothing is timed
-    and the times are None."""
+    bound. With ``int8`` the cache or pool is int8 with its scales (the
+    int8 instances, held exactly to kernel 2 / 5's int8 instances).
+    Returns the record. On the CPU (``device``, the tests' rehearsal)
+    the wrappers run their plain versions, nothing is timed and the
+    times are None."""
     import numpy as np
     import torch.nn.functional as F
     sh = PAGED_SHAPE
@@ -510,32 +571,48 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
         q = torch.randn((b, window, h, d), generator=g,
                         device=device).to(dtype)
         shape = (pages, h, page, d) if paged else (b, h, cap, d)
-        k, v = (torch.randn(shape, generator=g, device=device).to(dtype)
-                for _ in range(2))
-        if paged:
-            k[0] = NULL_GARBAGE
-            v[0] = NULL_GARBAGE
-        sets.append((q, k, v))
+        if int8:
+            (k, ks), (v, vs) = (_int8_cache(torch, shape, g, device, paged)
+                                for _ in range(2))
+        else:
+            k, v = (torch.randn(shape, generator=g, device=device).to(dtype)
+                    for _ in range(2))
+            ks = vs = None
+            if paged:
+                k[0] = NULL_GARBAGE
+                v[0] = NULL_GARBAGE
+        sets.append((q, k, v, ks, vs))
+
+    def scales(ks, vs):
+        return {"k_scale": ks, "v_scale": vs} if int8 else {}
 
     def kernel(i):
-        q, k, v = sets[i]
+        q, k, v, ks, vs = sets[i]
         if kind == "paged":
-            return fa.flash_decode_paged(q, k, v, off, pt)
+            return fa.flash_decode_paged(q, k, v, off, pt, **scales(ks, vs))
         if kind == "paged_verify":
-            return fa.flash_decode_paged_verify(q, k, v, off, pt)
-        return fa.flash_decode_verify(q, k, v, off)
+            return fa.flash_decode_paged_verify(q, k, v, off, pt,
+                                                **scales(ks, vs))
+        return fa.flash_decode_verify(q, k, v, off, **scales(ks, vs))
 
     def contiguous(i):
-        q, k, v = sets[i]
+        """The cache (gathered for a pool): ``(k, v, k_scale, v_scale)``."""
+        _, k, v, ks, vs = sets[i]
         if paged:
-            return fa.gather_kv_pages(k, pt), fa.gather_kv_pages(v, pt)
-        return k, v
+            gather = (lambda t: None if t is None else
+                      fa.gather_kv_pages(t, pt))
+            return tuple(gather(t) for t in (k, v, ks, vs))
+        return k, v, ks, vs
 
     def plain(i, upcast=False):
-        q, k, v = (t.float() if upcast else t for t in sets[i])
+        q, k, v, ks, vs = sets[i]
+        if upcast:
+            q = q.float()
+            if not int8:
+                k, v = k.float(), v.float()
         if paged:
-            return fa.flash_decode_paged_reference(q, k, v, off, pt)
-        return fa.flash_decode_reference(q, k, v, off)
+            return fa.flash_decode_paged_reference(q, k, v, off, pt, ks, vs)
+        return fa.flash_decode_reference(q, k, v, off, None, ks, vs)
 
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     out = kernel(0)
@@ -543,7 +620,7 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
     ref = plain(0, upcast=True)
     err = _max_err(out, ref)
     tol = TOL[_dtype_name(dtype)]
-    what = f"{kind} ({dtype}, window {window})"
+    what = f"{kind} ({dtype}, window {window}, int8 {int8})"
     if not torch.isfinite(out.float()).all() or err > tol:
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"max abs err {err:.3e} > {tol:.0e}")
@@ -558,15 +635,16 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
     off_j = [off + j for j in range(window)]
 
     def counterpart(i, cat=True, kv=None):
-        q, _, _ = sets[i]
-        kc, vc = kv or contiguous(i)
+        q = sets[i][0]
+        kc, vc, ksc, vsc = kv or contiguous(i)
+        sc = scales(ksc, vsc)
         if kind == "verify":
-            outs = [fa.flash_decode_ragged(qj, kc, vc, oj)
+            outs = [fa.flash_decode_ragged(qj, kc, vc, oj, **sc)
                     for qj, oj in zip(q_split[i], off_j)]
             return torch.cat(outs, dim=1) if cat else outs
         if kind == "paged":
-            return fa.flash_decode_ragged(q, kc, vc, off)
-        return fa.flash_decode_verify(q, kc, vc, off)
+            return fa.flash_decode_ragged(q, kc, vc, off, **sc)
+        return fa.flash_decode_verify(q, kc, vc, off, **sc)
 
     exact_vs = {"verify": "kernel 2 at offset off + j, per query j",
                 "paged": "kernel 2 on the gathered cache",
@@ -591,14 +669,20 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
         pos = torch.arange(cap, device=device)
         live = (pos[None, None, :] <= off[:, None, None] +
                 torch.arange(window, device=device)[None, :, None])[:, None]
-        lsets = [(st[0].transpose(1, 2), *contiguous(i))
-                 for i, st in enumerate(sets)]
+        lsets = []
+        for i, st in enumerate(sets):
+            kc, vc, ksc, vsc = contiguous(i)
+            lsets.append((st[0].transpose(1, 2),
+                          _widened(kc, ksc, dtype),
+                          _widened(vc, vsc, dtype)))
         library_ms, _ = time_ms(lambda i: F.scaled_dot_product_attention(
             *lsets[i], attn_mask=live), n_sets)
     bound_ms, bound_by = _paged_bound(offsets, window, h, d, cap,
                                       q.element_size(),
-                                      max_pages if paged else 0)
+                                      max_pages if paged else 0,
+                                      2 * (d + 4) if int8 else None)
     return {"kind": kind, "dtype": _dtype_name(dtype), "b": b, "h": h,
+            "kv_cache": "int8" if int8 else "query dtype",
             "d": d, "window": window, "capacity": cap,
             "page": page if paged else None, "pool_pages":
             pages if paged else None, "offsets": list(offsets),
@@ -608,34 +692,213 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
             "counterpart_ms": counterpart_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_computes": "SDPA, boolean mask, on the contiguous "
-            "cache (the gather not counted)",
+            "cache (the gather" + (" and the int8 widening" if int8
+                                   else "") + " not counted)",
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def phase_decode_kernels(device="cuda"):
+def phase_decode_kernels(device="cuda", int8=False):
     """Kernels 6a, 5 and 6b against their plain versions and exactly
-    against kernel 2 / 5, bf16 and fp32, windows 2, 5 and 32; returns
-    ``{phase: cases}``, each list led by the serving path's case (bf16;
-    window 5, the spec path's 4 drafts + 1, for the verify kernels)."""
+    against kernel 2 / 5, bf16 and fp32, windows 2, 5 and 32 (with
+    ``int8`` their int8 instances over int8 caches, the phases named
+    ``..._int8``); returns ``{phase: cases}``, each list led by the
+    serving path's case (bf16; window 5, the spec path's 4 drafts + 1,
+    for the verify kernels)."""
     import torch
     from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
-    out = {"kernel_paged": [], "kernel_verify": [],
-           "kernel_paged_verify": []}
-    seed = 500
+    sfx = "_int8" if int8 else ""
+    out = {"kernel_paged" + sfx: [], "kernel_verify" + sfx: [],
+           "kernel_paged_verify" + sfx: []}
+    seed = 700 if int8 else 500
     for dtype in (torch.bfloat16, torch.float32):
-        out["kernel_paged"].append(decode_window_case(
-            fa, torch, "paged", dtype, 1, seed, device=device))
+        out["kernel_paged" + sfx].append(decode_window_case(
+            fa, torch, "paged", dtype, 1, seed, device=device, int8=int8))
         seed += 1
         for window in (5, 2, 32):
             for phase, kind in (("kernel_verify", "verify"),
                                 ("kernel_paged_verify", "paged_verify")):
-                out[phase].append(decode_window_case(
-                    fa, torch, kind, dtype, window, seed, device=device))
+                out[phase + sfx].append(decode_window_case(
+                    fa, torch, kind, dtype, window, seed, device=device,
+                    int8=int8))
                 seed += 1
     for phase, cases in out.items():
         for c in cases:
             emit({"phase": phase, **c})
     return out
+
+
+def phase_int8_decode_kernels(device="cuda"):
+    """The int8 instances of kernels 2, 5, 6a and 6b (``kv_cache_dtype:
+    int8``) against their plain versions at the shapes of kernel 2's
+    phase and of :func:`phase_decode_kernels`, each of 5, 6a and 6b also
+    exactly against kernel 2 / 5's int8 instance; returns ``(kernel 2
+    cases, {phase: cases})``."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    offsets = [0, 1, 127, 128, 511, 1023, 700, 300]
+    dec = []
+    seed = 600
+    for shared_bias in (False, True):
+        for dtype in (torch.bfloat16, torch.float32):
+            dec.append(decode_case(fa, torch, dtype, offsets, 16, 1024, 64,
+                                   shared_bias, seed, int8=True,
+                                   device=device))
+            seed += 1
+    dec.append(decode_case(fa, torch, torch.bfloat16, offsets[:4], 8, 512,
+                           128, False, seed, int8=True, device=device))
+    for c in dec:
+        emit({"phase": "kernel2_int8", **c})
+    return dec, phase_decode_kernels(device, int8=True)
+
+
+# -- kernel 7: the weight-only int8 matmul ------------------------------
+
+#: the 345M dense sites ``(name, K, N)``: qkv, out, fc1, fc2
+QMM_SITES = (("qkv", 1024, 3072), ("out", 1024, 1024), ("fc1", 1024, 4096),
+             ("fc2", 4096, 1024))
+#: M at those sites: a 16-slot decode tick, its verify window (16 x 5), a
+#: paged prefill chunk (two 128-token pages) and a contiguous prompt
+QMM_ROWS = (16, 80, 256, 512)
+#: kernel 7 against its plain version in fp32 on the same inputs, whose
+#: outputs have std 0.5: bf16 is the output's own rounding (half an ulp,
+#: 7.8e-3 in [2, 4)); fp32 the JAX kernel test's atol, for fp32 sums of
+#: up to 4096 products in another order
+TOL_QMM = {"bfloat16": 2e-2, "float32": 1e-4}
+#: weight bytes each timed case rotates through, beyond the 50 MB L2: at
+#: decode a tick reads all 24 layers' weights (302 MB int8) once
+QMM_COLD_BYTES = 128e6
+
+
+def _qmm_bound(m, k, n, itemsize):
+    """(bound_ms, bound_by) of one kernel 7 call: x, the int8 weight,
+    the fp32 scales and the output moved once over HBM, against 2 M K N
+    FLOPs over the peak for x's type (bf16 tensor cores, fp32 CUDA
+    cores)."""
+    nbytes = m * k * itemsize + k * n + 4 * n + m * n * itemsize
+    flops = 2.0 * m * k * n
+    peak = BF16_TENSOR_FLOPS if itemsize == 2 else FP32_CUDA_CORE_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _tile_rel_l2(out, ref, tile=TILE):
+    """The worst ``tile x tile`` output tile's ``||out - ref||_2 /
+    ||ref||_2`` of two ``[M, N]`` matrices (M padded to the tile)."""
+    import torch.nn.functional as F
+    m, n = ref.shape
+    pad = (0, 0, 0, -m % tile)
+    diff = F.pad(out.float() - ref.float(), pad)
+    norm = F.pad(ref.float(), pad)
+
+    def tiles(t):
+        return t.reshape(-1, tile, n // tile, tile).pow(2).sum(
+            dim=(1, 3)).sqrt()
+    return float((tiles(diff) / tiles(norm).clamp_min(1e-30)).max())
+
+
+def _hold_tiles(out, ref, what):
+    """``(reading, planted)`` of :func:`_tile_rel_l2`: within
+    ``TOL_REL_L2``, and refused with one ``TILE``-column block of the
+    output zeroed."""
+    tol = TOL_REL_L2[_dtype_name(out.dtype)]
+    reading = _tile_rel_l2(out, ref)
+    wrong = out.clone()
+    c0 = (out.shape[1] // 2) // TILE * TILE
+    wrong[:, c0:c0 + TILE] = 0
+    planted = _tile_rel_l2(wrong, ref)
+    if not reading <= tol < planted:
+        raise AssertionError(
+            f"{what}: tile normwise error {reading:.3e} (planted fault "
+            f"{planted:.3e}) is not within {tol:.0e} < planted")
+    return reading, planted
+
+
+def qmm_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
+    """Kernel 7 against its plain version (fp32, the same inputs) by max
+    abs error and per 64 x 64 output tile normwise, with a planted fault;
+    timed with its plain version, the library yardstick (``F.linear``
+    on the weight dequantized to x's type beforehand: cuBLAS over twice
+    the int8 weight's bytes, four times in fp32) and, where this PyTorch
+    has it on the card, ``torch._weight_int8pack_mm``, over input sets
+    whose weights together exceed the L2 cache. Returns the record. On
+    the CPU (``device``) the wrapper runs its plain version and nothing
+    is timed."""
+    import math
+    import torch.nn.functional as F
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_sets = 1 if device == "cpu" else \
+        max(4, math.ceil(QMM_COLD_BYTES / (k * n)))
+    # int8 uniform in [-127, 127] has std 73.6: these scales give
+    # outputs of std ~0.5
+    unit = 0.5 / (73.6 * k ** 0.5)
+    sets = []
+    for _ in range(n_sets):
+        x = torch.randn((m, k), generator=g, device=device).to(dtype)
+        w = torch.randint(-127, 128, (n, k), generator=g, device=device,
+                          dtype=torch.int8)
+        scale = unit * (0.75 + 0.5 * torch.rand(n, generator=g,
+                                                device=device))
+        sets.append((x, w, scale))
+    x, w, scale = sets[0]
+    out = qmm.quantized_matmul(x, w, scale)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ref = qmm.quantized_matmul_reference(x.float(), w, scale)
+    err = _max_err(out, ref)
+    name = _dtype_name(dtype)
+    tol = TOL_QMM[name]
+    what = f"quantized_matmul ({name}, {site}, M={m}, K={k}, N={n})"
+    if out.shape != (m, n) or out.dtype != dtype or \
+            not torch.isfinite(out.float()).all() or err > tol:
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"max abs err {err:.3e} > {tol:.0e}")
+    rel_l2, planted = _hold_tiles(out, ref, what)
+    ms = call_ms = plain_ms = library_ms = int8pack_ms = None
+    if device != "cpu":
+        ms, call_ms = time_ms(lambda i: qmm.quantized_matmul(*sets[i]),
+                              n_sets)
+        plain_ms, _ = time_ms(lambda i: qmm.quantized_matmul_reference(
+            *sets[i]), n_sets, iters=5)
+        dq = [(xs, (ws.float() * ss[:, None]).to(dtype))
+              for xs, ws, ss in sets]
+        library_ms, _ = time_ms(lambda i: F.linear(*dq[i]), n_sets)
+        del dq
+        try:
+            torch._weight_int8pack_mm(x, w, scale.to(dtype))
+            int8pack_ms, _ = time_ms(lambda i: torch._weight_int8pack_mm(
+                sets[i][0], sets[i][1], sets[i][2].to(dtype)), n_sets)
+        except (RuntimeError, NotImplementedError, AttributeError):
+            int8pack_ms = None   # not in this build for CUDA / this dtype
+    bound_ms, bound_by = _qmm_bound(m, k, n, x.element_size())
+    return {"dtype": name, "site": site, "M": m, "K": k, "N": n,
+            "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
+            "rel_l2_planted": planted, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_computes": "F.linear on the weight dequantized to "
+            "x's dtype (cuBLAS)", "int8pack_ms": int8pack_ms,
+            "int8pack_computes": "torch._weight_int8pack_mm (x, int8 "
+            "[N, K], scales in x's dtype)", "bound_ms": bound_ms,
+            "bound_by": bound_by, "weight_sets": n_sets}
+
+
+def phase_kernel_qmm(device="cuda", rows=QMM_ROWS, sites=QMM_SITES):
+    """Kernel 7 at the four 345M site shapes x ``rows``, bf16 and fp32;
+    returns the cases, led by the decode tick's (bf16, M 16, qkv)."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
+    cases = []
+    seed = 800
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in rows:
+            for site, k, n in sites:
+                cases.append(qmm_case(qmm, torch, dtype, site, m, k, n, seed,
+                                      device))
+                seed += 1
+                if device != "cpu":
+                    torch.cuda.empty_cache()
+    for c in cases:
+        emit({"phase": "kernel_qmm", **c})
+    return cases
 
 
 # -- kernel 1 with dropout; kernels 3 and 4: the backward ---------------
@@ -900,38 +1163,49 @@ def phase_backward():
 # -- the serving path ---------------------------------------------------
 
 
+#: the decode kernels' wrappers, each counting its bf16/fp32 instance in
+#: ``launches`` and its int8 instance in ``launches_int8``
+DECODE_KERNELS = ("flash_decode", "flash_decode_verify", "flash_decode_paged",
+                  "flash_decode_paged_verify")
+#: the launch counts :func:`read_counts` reports for them
+DECODE_COUNTS = DECODE_KERNELS + tuple(k + "_int8" for k in DECODE_KERNELS)
+
+
 def reset_counts():
     """Zero every kernel's launch count and the process-global registry
     (enabled), just before a run whose counts are read."""
     from paddlefleetx_tpu_torch.observability import metrics
     from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
     fa.flash_attention.launches = 0
-    fa.flash_decode.launches = 0
-    fa.flash_decode_verify.launches = 0
-    fa.flash_decode_paged.launches = 0
-    fa.flash_decode_paged_verify.launches = 0
+    for name in DECODE_KERNELS:
+        getattr(fa, name).launches = 0
+        getattr(fa, name).launches_int8 = 0
     fa.flash_attention_backward.launches_dkv = 0
     fa.flash_attention_backward.launches_dq = 0
+    qmm.quantized_matmul.launches = 0
     metrics.set_enabled(True)
     metrics.get_registry().reset()
 
 
 def read_counts() -> dict:
-    """Every kernel's launch count and the registry's ``attention/*``
-    and ``serving/*`` counters, just after a run."""
+    """Every kernel's launch count and the registry's ``attention/*``,
+    ``quant/*`` and ``serving/*`` counters, just after a run."""
     from paddlefleetx_tpu_torch.observability import metrics
     from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
     counters = metrics.get_registry().snapshot()["counters"]
-    return {"flash_attention": fa.flash_attention.launches,
-            "flash_decode": fa.flash_decode.launches,
-            "flash_decode_verify": fa.flash_decode_verify.launches,
-            "flash_decode_paged": fa.flash_decode_paged.launches,
-            "flash_decode_paged_verify":
-            fa.flash_decode_paged_verify.launches,
-            "flash_bwd_dkv": fa.flash_attention_backward.launches_dkv,
-            "flash_bwd_dq": fa.flash_attention_backward.launches_dq,
-            "counters": {k: v for k, v in sorted(counters.items())
-                         if k.startswith(("attention/", "serving/"))}}
+    counts = {"flash_attention": fa.flash_attention.launches,
+              "flash_bwd_dkv": fa.flash_attention_backward.launches_dkv,
+              "flash_bwd_dq": fa.flash_attention_backward.launches_dq,
+              "quantized_matmul": qmm.quantized_matmul.launches,
+              "counters": {k: v for k, v in sorted(counters.items())
+                           if k.startswith(("attention/", "quant/",
+                                            "serving/"))}}
+    for name in DECODE_KERNELS:
+        counts[name] = getattr(fa, name).launches
+        counts[name + "_int8"] = getattr(fa, name).launches_int8
+    return counts
 
 
 def seeded_prompts(n, lo, hi, vocab, seed):
@@ -1026,6 +1300,7 @@ def phase_serve(device="cuda", overrides=(), requests=16, slots=8,
 KERNEL_CATEGORIES = (("flash_decode", ("decode_kernel",)),
                      ("flash_attention", ("flash_fwd",)),
                      ("flash_backward", ("flash_bwd",)),
+                     ("quantized_matmul", ("qmm_",)),
                      ("gemm", ("gemm", "nvjet", "splitkreduce", "cutlass",
                                "xmma")))
 
@@ -1099,20 +1374,30 @@ def phase_profile(module, slots=8, ticks=16):
     emit({"phase": "profile", "slots": slots, "windows": [admit, tick]})
 
 
-def phase_serve_cli(device="cuda", overrides=(), paged_spec=False):
+def phase_serve_cli(device="cuda", overrides=(), paged_spec=False,
+                    int8=False):
     """The ``serve`` entry point as a user calls it, with the recipe's
     own sampling (top-k 50, top-p 0.75): 8 requests, ``max_dec_len``
     16, 4 slots; every request finishes and every admission and tick
     went through the kernels. With ``paged_spec`` the recipe's
     ``Model.kv_page_size`` / ``kv_pool_pages`` and
     ``Generation.spec_method`` knobs turn on the paged, speculative
-    server (every tick the paged verify kernel)."""
+    server (every tick the paged verify kernel). With ``int8`` both
+    int8 knobs and the paged knobs with the int8 pool of the bf16
+    pool's bytes (every tick kernel 6a's int8 instance, every dense
+    site kernel 7)."""
     from paddlefleetx_tpu_torch import cli
     from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
     from paddlefleetx_tpu_torch.utils.config import get_config
     knobs = [f"Model.kv_page_size={HEADLINE['page']}",
              f"Model.kv_pool_pages={HEADLINE['pool_pages']}",
              "Generation.spec_method=ngram"] if paged_spec else []
+    if int8:
+        mcfg = GPTConfig.from_config(get_config(CONFIG, list(overrides)))
+        pages, _ = int8_pool_pages(mcfg, HEADLINE["pool_pages"],
+                                   HEADLINE["page"])
+        knobs = [*INT8_KNOBS, f"Model.kv_page_size={HEADLINE['page']}",
+                 f"Model.kv_pool_pages={pages}"]
     over = ["Generation.max_dec_len=16", *knobs, *overrides]
     argv = ["-c", CONFIG, "--requests", "8", "--slots", "4",
             "--max-prompt-len", "300"]
@@ -1126,9 +1411,20 @@ def phase_serve_cli(device="cuda", overrides=(), paged_spec=False):
     if summary["admitted"] < 8 or summary["evicted"] != 8 or \
             not set(summary["finish_reasons"]) <= {"eos", "length"}:
         raise AssertionError(f"serve entry point: {summary}")
-    layers = GPTConfig.from_config(get_config(CONFIG, over)).num_layers
+    mcfg = GPTConfig.from_config(get_config(CONFIG, over))
+    layers = mcfg.num_layers
     label = "serve_cli_paged_spec" if paged_spec else "serve_cli"
-    if paged_spec:
+    if int8:
+        label = "serve_cli_int8"
+        if summary.get("kv_cache_dtype") != "int8" or \
+                summary.get("pool_pages") != pages:
+            raise AssertionError(f"{label}: the knobs did not reach the "
+                                 f"server: {summary}")
+        check_paged_counts(counts, summary, layers, label,
+                           "flash_decode_paged_int8")
+        check_int8_counts(counts, summary, layers, label,
+                          "flash_decode_paged_int8", mcfg)
+    elif paged_spec:
         if not summary.get("paged") or "spec_accept_rate" not in summary:
             raise AssertionError(f"{label}: the knobs did not reach the "
                                  f"server: {summary}")
@@ -1136,12 +1432,13 @@ def phase_serve_cli(device="cuda", overrides=(), paged_spec=False):
                            "flash_decode_paged_verify")
     else:
         check_serve_counts(counts, summary, layers, label)
-    emit({"phase": label, "strategy": "sampling",
+    emit({"phase": label, "strategy": "sampling", "overrides": over,
           "finish_reasons": summary["finish_reasons"],
           "decode_ticks": summary["decode_ticks"],
           "launches": {k: counts[k] for k in (
               "flash_attention", "flash_decode",
-              "flash_decode_paged_verify")}})
+              "flash_decode_paged_verify", "flash_decode_paged_int8",
+              "quantized_matmul")}})
 
 
 def top2_gap(model, prompt, prefix):
@@ -1311,13 +1608,12 @@ def check_paged_counts(counts, summary, layers, label, kernel):
     a contiguous one's admissions kernel 1; no other fallback fired."""
     c = counts["counters"]
     ticks = summary["decode_ticks"] * layers
-    others = {"flash_decode", "flash_decode_verify", "flash_decode_paged",
-              "flash_decode_paged_verify"} - {kernel}
+    others = set(DECODE_COUNTS) - {kernel}
     if counts[kernel] != ticks or ticks == 0 or \
-            any(counts[k] for k in others):
+            any(counts.get(k, 0) for k in others):
         raise AssertionError(f"{label}: {kernel} launched {counts[kernel]} "
                              f"times for {ticks} layer-ticks (> 0), others "
-                             f"{ {k: counts[k] for k in others} }")
+                             f"{ {k: counts.get(k, 0) for k in others} }")
     if summary.get("paged"):
         chunks = summary["prefill_chunks"] * layers
         allowed = ("attention/fallback/kv_cache_layout",)
@@ -1339,25 +1635,81 @@ def check_paged_counts(counts, summary, layers, label, kernel):
         raise AssertionError(f"{label}: fallback counters {bad}")
 
 
-def serve_trace(module, label, device, spec=False, paged=True, slots=None):
+#: the two int8 knobs as a user sets them
+INT8_KNOBS = ("Model.kv_cache_dtype=int8",
+              "Model.quant_execution=weight_only_int8")
+#: the dispatch counter a serving tick of each decode kernel fires
+TICK_COUNTERS = {
+    "flash_decode": "attention/flash_decode_ragged",
+    "flash_decode_verify": "attention/flash_decode_ragged_verify",
+    "flash_decode_paged": "attention/flash_decode_paged",
+    "flash_decode_paged_verify": "attention/flash_decode_paged_verify"}
+
+
+def server_forwards(summary) -> int:
+    """A server run's model forwards: one a decode tick, plus one a
+    prefill chunk (paged) or an admission (contiguous)."""
+    return summary["decode_ticks"] + (summary["prefill_chunks"]
+                                      if summary.get("paged")
+                                      else summary["admitted"])
+
+
+def check_quant_counts(counts, layers, forwards, label):
+    """Under ``quant_execution`` every dense site (4 a layer) of every
+    forward launched kernel 7, and no site took the dequantize-then-
+    matmul route."""
+    c = counts["counters"]
+    want = 4 * layers * forwards
+    if not c.get("quant/matmul", 0) == counts["quantized_matmul"] == \
+            want > 0 or c.get("quant/fallback/kernel_rejected", 0):
+        raise AssertionError(
+            f"{label}: quant/matmul {c.get('quant/matmul')}, kernel 7 "
+            f"launched {counts['quantized_matmul']}, fallbacks "
+            f"{c.get('quant/fallback/kernel_rejected', 0)}; expected "
+            f"{want} (4 sites x {layers} layers x {forwards} forwards)")
+
+
+def check_int8_counts(counts, summary, layers, label, kernel, cfg):
+    """The int8 knobs' checks of a server run beside
+    :func:`check_paged_counts`: each tick fired the int8 dispatch
+    counter of its kernel once a layer, and under ``quant_execution``
+    kernel 7 ran at every dense site."""
+    c = counts["counters"]
+    if cfg.kv_cache_dtype == "int8":
+        name = TICK_COUNTERS[kernel[:-len("_int8")]] + "_int8"
+        ticks = summary["decode_ticks"] * layers
+        if c.get(name, 0) != ticks:
+            raise AssertionError(f"{label}: {name} {c.get(name)} for "
+                                 f"{ticks} layer-ticks")
+    if cfg.quant_execution != "off":
+        check_quant_counts(counts, layers, server_forwards(summary), label)
+
+
+def serve_trace(module, label, device, spec=False, paged=True, slots=None,
+                pool_pages=None, requests=None, max_dec_len=None):
     """The headline trace twice on fresh servers, warm then measured
     (the counts zeroed just before the measured ``run``, read just
-    after); checks that every request finished with in-vocab tokens and
-    that the drained pool is whole. Returns the measured record."""
+    after); checks that every request finished with in-vocab tokens, that
+    the drained pool is whole and, under the int8 knobs, that their
+    kernels ran (:func:`check_int8_counts`). ``pool_pages``,
+    ``requests`` and ``max_dec_len`` replace the trace's. Returns the
+    measured record."""
     import dataclasses
     import torch
     from paddlefleetx_tpu_torch.core.serving import GenerationServer
     hl = HEADLINE
     cfg = module.model_config
     gcfg = module.generation_cfg
+    if max_dec_len:
+        gcfg = dataclasses.replace(gcfg, max_dec_len=max_dec_len)
     if spec:
         gcfg = dataclasses.replace(gcfg, spec_method="ngram",
                                    spec_tokens=hl["spec_tokens"])
     slots = slots or hl["slots"]
-    kw = dict(page_size=hl["page"], pool_pages=hl["pool_pages"],
+    kw = dict(page_size=hl["page"], pool_pages=pool_pages or hl["pool_pages"],
               prefill_chunk_pages=hl["prefill_chunk_pages"]) if paged else {}
-    prompts = headline_prompts(cfg.vocab_size, hl["requests"], hl["lo"],
-                               hl["hi"], hl["seed"])
+    prompts = headline_prompts(cfg.vocab_size, requests or hl["requests"],
+                               hl["lo"], hl["hi"], hl["seed"])
     GenerationServer(module.model, gcfg, num_slots=slots, seed=module.seed,
                      **kw).run(prompts)
     server = GenerationServer(module.model, gcfg, num_slots=slots,
@@ -1388,13 +1740,22 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None):
               (True, True): "flash_decode_paged_verify",
               (False, True): "flash_decode_verify",
               (False, False): "flash_decode"}[(paged, spec)]
+    int8 = cfg.kv_cache_dtype == "int8"
+    if int8:
+        kernel += "_int8"
     check_paged_counts(counts, summary, cfg.num_layers, label, kernel)
+    if int8 or cfg.quant_execution != "off":
+        check_int8_counts(counts, summary, cfg.num_layers, label, kernel,
+                          cfg)
     generated = sum(len(c.tokens) for c in completions)
     record = {
         "phase": label, "model": "GPT-345M", "dtype": cfg.dtype,
         "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "kv_cache_dtype": cfg.kv_cache_dtype,
+        "quant_execution": cfg.quant_execution,
         "paged": paged, "spec": spec, "slots": slots,
-        "requests": len(prompts), "trace": hl,
+        "requests": len(prompts), "max_dec_len": gcfg.max_dec_len,
+        "trace": hl,
         "generated_tokens": generated, "wall_s": wall,
         "e2e_tokens_per_s": generated / wall,
         "decode_tokens_per_s": summary["tokens_per_sec"],
@@ -1406,11 +1767,14 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None):
         "tick_p99_ms": summary.get("tick_p99_ms"),
         "kernel": kernel, "launches": {kernel: counts[kernel],
                                        "flash_attention":
-                                       counts["flash_attention"]},
+                                       counts["flash_attention"],
+                                       "quantized_matmul":
+                                       counts["quantized_matmul"]},
+        "forwards": server_forwards(summary),
         "counters": counts["counters"]}
     for key in ("prefill_chunks", "prefix_hits", "prompt_hits", "cow_splits",
-                "preempted", "pages_in_use", "pool_pages", "spec_drafted",
-                "spec_accepted", "spec_accept_rate"):
+                "preempted", "pages_in_use", "pool_pages", "pool_bytes",
+                "spec_drafted", "spec_accepted", "spec_accept_rate"):
         if key in summary:
             record[key] = summary[key]
     if device != "cpu":
@@ -1456,11 +1820,12 @@ def phase_serve_spec(module, device="cuda"):
     return paged, contiguous
 
 
-def phase_profile_paged(module, ticks=16):
+def phase_profile_paged(module, ticks=16, pool_pages=None, suffix=""):
     """Where a paged tick's time goes, plain and speculative: the
-    headline server (16 slots, 65-page pool) fed its first 16 prompts
-    and stepped until every slot decodes, then ``ticks`` steps under
-    ``torch.profiler`` (kernel time by category, idle share)."""
+    headline server (16 slots, 65-page pool, or ``pool_pages``) fed its
+    first 16 prompts and stepped until every slot decodes, then
+    ``ticks`` steps under ``torch.profiler`` (kernel time by category,
+    idle share); the windows and the phase are named with ``suffix``."""
     import dataclasses
     import torch
     from paddlefleetx_tpu_torch.core.serving import GenerationServer
@@ -1469,14 +1834,15 @@ def phase_profile_paged(module, ticks=16):
     prompts = headline_prompts(cfg.vocab_size, hl["requests"], hl["lo"],
                                hl["hi"], hl["seed"])[:hl["slots"]]
     windows = []
-    for label, spec in (("decode_paged", False), ("verify_paged", True)):
+    for label, spec in (("decode_paged" + suffix, False),
+                        ("verify_paged" + suffix, True)):
         gcfg = module.generation_cfg
         if spec:
             gcfg = dataclasses.replace(gcfg, spec_method="ngram",
                                        spec_tokens=hl["spec_tokens"])
         server = GenerationServer(
             module.model, gcfg, num_slots=hl["slots"], seed=module.seed,
-            page_size=hl["page"], pool_pages=hl["pool_pages"],
+            page_size=hl["page"], pool_pages=pool_pages or hl["pool_pages"],
             prefill_chunk_pages=hl["prefill_chunk_pages"])
         for p in prompts:
             server.submit(p)
@@ -1488,8 +1854,9 @@ def phase_profile_paged(module, ticks=16):
                 server.step()
         windows.append(profile_window(torch, label, run, ticks))
         windows[-1]["occupancy"] = server.occupancy
-    emit({"phase": "profile_paged", "slots": hl["slots"],
-          "windows": windows})
+    emit({"phase": "profile_paged" + suffix, "slots": hl["slots"],
+          "pool_pages": pool_pages or hl["pool_pages"], "windows": windows})
+    return windows
 
 
 def _first_divergence(got, want, eos):
@@ -1601,6 +1968,190 @@ def phase_parity_paged(device="cuda", overrides=(), max_dec_len=48,
         emit(record)
         records.append(record)
         del module, model
+    return records
+
+
+# -- int8 serving: kv_cache_dtype int8, quant_execution weight_only_int8 --
+
+#: the short arms of ``serve_int8`` (contiguous, contiguous and paged
+#: speculative): enough ticks for every int8 instance to run on a main
+#: path, not a second measurement of the trace
+INT8_SHORT = {"requests": 8, "max_dec_len": 32}
+
+
+def int8_pool_pages(cfg, bf16_pages, page):
+    """``(int8 pages, bytes)``: the int8 pool that fits the device bytes
+    of a ``bf16_pages`` bf16 pool (``core/paging.py``'s
+    ``pool_pages_for_bytes``, as the JAX package's serving A/B sizes
+    it)."""
+    from paddlefleetx_tpu_torch.core.paging import (
+        pool_bytes, pool_pages_for_bytes,
+    )
+    dims = (cfg.num_layers, cfg.num_attention_heads, cfg.head_dim, page)
+    budget = pool_bytes(*dims, bf16_pages, "bf16")
+    return pool_pages_for_bytes(budget, *dims, "int8"), budget
+
+
+def phase_serve_int8(bf16_paged, device="cuda", overrides=(),
+                     short=INT8_SHORT):
+    """The JAX package's int8 serving A/B at full width: the headline
+    trace with both int8 knobs on (weights from ``Global.seed``,
+    quantized at build) through the paged server from an int8 pool that
+    fits the bf16 pool's device bytes (122 pages for 65 at 345M), then
+    ``short`` contiguous, contiguous speculative and paged speculative
+    arms, so that every int8 instance and kernel 7 run on a main path,
+    each with its counts zeroed just before and read just after (and
+    checked: :func:`check_int8_counts`). ``bf16_paged`` is the
+    ``serve_paged`` record of the same call, printed beside. Returns
+    ``({arm: record}, module)``."""
+    hl = HEADLINE
+    module = serving_module(device, [
+        *INT8_KNOBS, f"Generation.max_dec_len={hl['max_dec_len']}",
+        *overrides])
+    cfg = module.model_config
+    pages, budget = int8_pool_pages(cfg, hl["pool_pages"], hl["page"])
+    runs = {"paged": serve_trace(module, "serve_int8", device,
+                                 pool_pages=pages)}
+    runs["contiguous"] = serve_trace(
+        module, "serve_int8", device, paged=False,
+        slots=hl["contiguous_spec_slots"], **short)
+    runs["contiguous_spec"] = serve_trace(
+        module, "serve_int8", device, spec=True, paged=False,
+        slots=hl["contiguous_spec_slots"], **short)
+    runs["paged_spec"] = serve_trace(module, "serve_int8", device, spec=True,
+                                     pool_pages=pages, **short)
+    for name in ("contiguous_spec", "paged_spec"):
+        rate = runs[name]["spec_accept_rate"]
+        if not 0.0 <= rate <= SPEC_ACCEPT_LIMIT:
+            raise AssertionError(f"serve_int8 {name} accepted {rate:.4f} of "
+                                 f"its drafts, over {SPEC_ACCEPT_LIMIT}")
+    cap_pages = cfg.cache_capacity // hl["page"]
+    admit, admit_bf16 = (pages - 1) // cap_pages, \
+        (hl["pool_pages"] - 1) // cap_pages
+    p = runs["paged"]
+    ab = {"phase": "serve_int8_ab", "pool_bytes": budget,
+          "pool_pages": pages, "pool_pages_bf16": hl["pool_pages"],
+          "slots_admitted": admit, "slots_admitted_bf16": admit_bf16,
+          "slot_ratio": admit / max(admit_bf16, 1)}
+    for key in ("decode_tokens_per_s", "e2e_tokens_per_s", "tick_p50_ms",
+                "tick_p99_ms", "ttft_p50_ms", "ttft_p99_ms",
+                "peak_mem_gib"):
+        if key in p:
+            ab[key] = p[key]
+            ab[key + "_bf16"] = bf16_paged.get(key)
+    emit(ab)
+    return runs, module
+
+
+def phase_parity_int8(device="cuda", overrides=(), max_dec_len=48,
+                      small_pool=9):
+    """Greedy rows under both int8 knobs, at the 345M width: the paged,
+    paged speculative, contiguous speculative and contiguous servers
+    against the int8 lockstep ``generate()`` (kernel 2's shared-offset
+    int8 instance, its counts checked), on four prompts sharing a
+    256-token prefix, the last a repeat of the first. In fp32 every row
+    must equal lockstep (a mismatch only at a true near-tie), also with
+    a ``small_pool``-page pool in which the repeat is admitted late,
+    shares the first prompt's pages, partial last page included, and
+    splits it copy-on-write, and a request is preempted: a split that
+    left the scale pools behind would change its row. bf16 prints its
+    equal-row share; both print the share of int8 lockstep rows equal to
+    the lockstep rows of the same weights with both knobs off."""
+    import dataclasses
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.models.gpt.generation import (
+        generate, left_pad_batch,
+    )
+    hl = HEADLINE
+    records = []
+    for dtype_over in (["Engine.mix_precision.use_pure_fp16=False"], []):
+        base = [*dtype_over, "Generation.decode_strategy=greedy_search",
+                f"Generation.max_dec_len={max_dec_len}", *overrides]
+        module = serving_module(device, [*INT8_KNOBS, *base])
+        cfg, gcfg, model = module.model_config, module.generation_cfg, \
+            module.model
+        prompts = parity_prompts(cfg.vocab_size)
+        prompts[3] = list(prompts[0])
+        ids, mask = left_pad_batch(prompts, gcfg.pad_token_id)
+        eos = gcfg.eos_token_id
+        reset_counts()
+        lockstep = [_truncate(r, eos)
+                    for r in generate(model, ids, mask, gcfg).tolist()]
+        counts = read_counts()
+        layers = cfg.num_layers
+        steps = (max_dec_len - 1) * layers
+        if counts["flash_decode_int8"] != steps or counts["flash_decode"] or \
+                counts["counters"].get("attention/flash_decode_int8") != steps:
+            raise AssertionError(f"parity_int8: lockstep launched kernel 2's "
+                                 f"int8 instance {counts['flash_decode_int8']} "
+                                 f"times for {steps} layer-steps: {counts}")
+        check_quant_counts(counts, layers, max_dec_len, "parity_int8")
+        spec = dataclasses.replace(gcfg, spec_method="ngram",
+                                   spec_tokens=hl["spec_tokens"])
+        paged = dict(page_size=hl["page"],
+                     prefill_chunk_pages=hl["prefill_chunk_pages"])
+        small = dict(paged, pool_pages=small_pool)
+        runs = {"paged": (gcfg, paged), "paged_spec": (spec, paged),
+                "contiguous_spec": (spec, {}), "contiguous": (gcfg, {}),
+                "paged_small_pool": (gcfg, small),
+                "paged_spec_small_pool": (spec, small)}
+        rows, summaries = {}, {}
+        for name, (g, kw) in runs.items():
+            srv = GenerationServer(model, g, num_slots=len(prompts), **kw)
+            rows[name] = [c.tokens for c in srv.run(prompts)]
+            summaries[name] = srv.summary()
+            if srv.paged:
+                srv.check_alloc()
+                if summaries[name]["pages_in_use"]:
+                    raise AssertionError(f"parity_int8: {name} left pages "
+                                         f"in use")
+        near = 0
+        if cfg.dtype == "float32":
+            for name, got in rows.items():
+                near += len(compare_rows(f"parity_int8_{name}", model,
+                                         prompts, got, lockstep, eos))
+        del module, model
+        ref = serving_module(device, base)
+        ref_rows = [_truncate(r, eos) for r in generate(
+            ref.model, ids, mask, ref.generation_cfg).tolist()]
+        del ref
+        record = {"phase": "parity_int8", "dtype": cfg.dtype,
+                  "kv_cache_dtype": cfg.kv_cache_dtype,
+                  "quant_execution": cfg.quant_execution,
+                  "requests": len(prompts),
+                  "prompt_lens": [len(p) for p in prompts],
+                  "max_dec_len": max_dec_len, "small_pool": small_pool,
+                  "lockstep_launches": {
+                      k: counts[k] for k in ("flash_attention",
+                                             "flash_decode_int8",
+                                             "quantized_matmul")},
+                  "counts": {n: {k: sm.get(k) for k in (
+                      "prefill_chunks", "prefix_hits", "prompt_hits",
+                      "cow_splits", "preempted", "spec_accept_rate",
+                      "decode_ticks")} for n, sm in summaries.items()},
+                  "lockstep_rows_equal_share_vs_knobs_off":
+                  _first_divergence(lockstep, ref_rows, eos)[0]
+                  / len(prompts)}
+        if cfg.dtype == "float32":
+            for name in ("paged_small_pool", "paged_spec_small_pool"):
+                sm = summaries[name]
+                if sm["preempted"] == 0 or sm["cow_splits"] == 0:
+                    raise AssertionError(
+                        f"parity_int8: {name} with a {small_pool}-page pool "
+                        f"preempted {sm['preempted']} and split "
+                        f"{sm['cow_splits']} pages (each must be > 0)")
+            record["rows_equal"] = {n: _first_divergence(r, lockstep, eos)[0]
+                                    for n, r in rows.items()}
+            record["near_ties"] = near
+        else:
+            record["rows_equal_share"] = {
+                n: _first_divergence(r, lockstep, eos)[0] / len(prompts)
+                for n, r in rows.items()}
+            record["first_divergence"] = {
+                n: _first_divergence(r, lockstep, eos)[1]
+                for n, r in rows.items()}
+        emit(record)
+        records.append(record)
     return records
 
 
@@ -1949,27 +2500,55 @@ def decode_window_rows(window, serve_paged, spec) -> list:
     runs on (``serve_paged``; ``serve_spec`` paged and contiguous),
     counted from zero just before that path."""
     spec_paged, spec_contig = spec
+    return _window_rows(window, "", {
+        "kernel_paged": {
+            "serve_paged": serve_paged["launches"]["flash_decode_paged"]},
+        "kernel_verify": {"serve_spec_contiguous":
+                          spec_contig["launches"]["flash_decode_verify"]},
+        "kernel_paged_verify": {
+            "serve_spec_paged":
+            spec_paged["launches"]["flash_decode_paged_verify"]}})
+
+
+#: the TPU kernels the decode instances replace (file:line)
+_DECODE_REPLACES = {
+    "flash_decode": "paddlefleetx_tpu/ops/pallas/flash_attention.py:1055",
+    "flash_decode_verify":
+    "paddlefleetx_tpu/ops/pallas/flash_attention.py:1140",
+    "flash_decode_paged":
+    "paddlefleetx_tpu/ops/pallas/flash_attention.py:1422",
+    "flash_decode_paged_verify":
+    "paddlefleetx_tpu/ops/pallas/flash_attention.py:1433"}
+#: where the TPU kernels take their int8 branch (``quantized=True``)
+_INT8_BRANCH = {
+    "flash_decode": "paddlefleetx_tpu/ops/pallas/flash_attention.py:1088-1117",
+    "flash_decode_verify":
+    "paddlefleetx_tpu/ops/pallas/flash_attention.py:1165-1189",
+    "flash_decode_paged":
+    "paddlefleetx_tpu/ops/pallas/flash_attention.py:1536-1548",
+    "flash_decode_paged_verify":
+    "paddlefleetx_tpu/ops/pallas/flash_attention.py:1549-1559"}
+
+
+def _window_rows(window, suffix, launches) -> list:
+    """Rows of kernels 6a, 5 and 6b (their int8 instances with
+    ``suffix`` "_int8") from the cases of ``window`` and the main-path
+    ``launches`` of each phase."""
     rows = []
-    for phase, name, replaces, launches in (
-            ("kernel_paged", "flash_decode_paged", "paddlefleetx_tpu/ops/"
-             "pallas/flash_attention.py:1422",
-             {"serve_paged": serve_paged["launches"]["flash_decode_paged"]}),
-            ("kernel_verify", "flash_decode_verify", "paddlefleetx_tpu/ops/"
-             "pallas/flash_attention.py:1140",
-             {"serve_spec_contiguous":
-              spec_contig["launches"]["flash_decode_verify"]}),
-            ("kernel_paged_verify", "flash_decode_paged_verify",
-             "paddlefleetx_tpu/ops/pallas/flash_attention.py:1433",
-             {"serve_spec_paged":
-              spec_paged["launches"]["flash_decode_paged_verify"]})):
+    for phase, name in (("kernel_paged", "flash_decode_paged"),
+                        ("kernel_verify", "flash_decode_verify"),
+                        ("kernel_paged_verify", "flash_decode_paged_verify")):
+        replaces = _DECODE_REPLACES[name]
+        phase, name = phase + suffix, name + suffix
+        launches_p = launches[phase]
         cases = window[phase]
         head = cases[0]
         err = max(c["max_abs_err"] for c in cases)
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddlefleetx_tpu_torch/csrc/flash_decode.cu",
-            "replaces": replaces, "launches": sum(launches.values()),
-            "launches_by_path": launches, "max_abs_err": err,
+            "replaces": replaces, "launches": sum(launches_p.values()),
+            "launches_by_path": launches_p, "max_abs_err": err,
             "max_err": err,
             "tol": {c["dtype"]: c["tol"] for c in cases},
             "max_rel_l2": max(c["rel_l2"] for c in cases),
@@ -1990,11 +2569,77 @@ def decode_window_rows(window, serve_paged, spec) -> list:
                                   "library_ms", "bound_ms", "bound_by")}
                 for c in cases},
             "cases": len(cases)})
+        if suffix:
+            rows[-1]["int8_branch"] = _INT8_BRANCH[name[:-len(suffix)]]
+    return rows
+
+
+def int8_rows(dec8, window8, qmm_cases, runs) -> list:
+    """The kernels line's rows of kernel 7 and of the int8 instances of
+    kernels 2, 5, 6a and 6b: each the main path's case (the first of its
+    phase) with the worst errors over all its cases, and its launches
+    on the ``serve_int8`` arms (``runs``), each counted from zero just
+    before its arm."""
+    def launched(key, arms):
+        return {f"serve_int8_{a}": runs[a]["launches"].get(key, 0)
+                for a in arms}
+    head = qmm_cases[0]
+    err = max(c["max_abs_err"] for c in qmm_cases)
+    qlaunch = launched("quantized_matmul", runs)
+    rows = [{
+        "name": "quantized_matmul", "route": "cuda",
+        "source": "paddlefleetx_tpu_torch/csrc/quantized_matmul.cu",
+        "replaces": "paddlefleetx_tpu/ops/pallas/quantized_matmul.py:44",
+        "launches": sum(qlaunch.values()), "launches_by_path": qlaunch,
+        "max_abs_err": err, "max_err": err,
+        "tol": {c["dtype"]: c["tol"] for c in qmm_cases},
+        "max_rel_l2": max(c["rel_l2"] for c in qmm_cases),
+        "min_rel_l2_planted": min(c["rel_l2_planted"] for c in qmm_cases),
+        "tol_rel_l2": TOL_REL_L2, "normwise_per": "64 x 64 output tile",
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_computes": head["library_computes"],
+        "int8pack_ms": head["int8pack_ms"],
+        "shape": {k: head[k] for k in ("dtype", "site", "M", "K", "N")},
+        "by_shape": {f"{c['dtype']}_{c['site']}_M{c['M']}": {
+            k: c[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                              "int8pack_ms", "bound_ms", "bound_by")}
+            for c in qmm_cases},
+        "cases": len(qmm_cases)}]
+    head = dec8[0]
+    err = max(c["max_abs_err"] for c in dec8)
+    klaunch = launched("flash_decode_int8", ("contiguous",))
+    rows.append({
+        "name": "flash_decode_int8", "route": "cuda",
+        "source": "paddlefleetx_tpu_torch/csrc/flash_decode.cu",
+        "replaces": _DECODE_REPLACES["flash_decode"],
+        "int8_branch": _INT8_BRANCH["flash_decode"],
+        "launches": sum(klaunch.values()), "launches_by_path": klaunch,
+        "max_abs_err": err, "max_err": err,
+        "tol": {c["dtype"]: c["tol"] for c in dec8},
+        "max_rel_l2": max(c["rel_l2"] for c in dec8),
+        "min_rel_l2_planted": min(c["rel_l2_planted"] for c in dec8),
+        "tol_rel_l2": TOL_REL_L2, "ms": head["ms"], "kernel_ms": head["ms"],
+        "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_computes": head["library_computes"],
+        "shape": {k: head[k] for k in ("dtype", "b", "h", "S", "d",
+                                       "offsets", "shared_offset_bias")},
+        "cases": len(dec8)})
+    rows += _window_rows(window8, "_int8", {
+        "kernel_paged_int8": launched("flash_decode_paged_int8", ("paged",)),
+        "kernel_verify_int8": launched("flash_decode_verify_int8",
+                                       ("contiguous_spec",)),
+        "kernel_paged_verify_int8": launched(
+            "flash_decode_paged_verify_int8", ("paged_spec",))})
     return rows
 
 
 def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
-                 serve_paged=None, spec=None) -> dict:
+                 serve_paged=None, spec=None, int8=None) -> dict:
     """The per-kernel record: each kernel's main-path shape (kernel 1:
     the serving case first, the training case beside it; kernels 3 and
     4: the recipe's bf16 case with dropout), the worst error over all
@@ -2084,6 +2729,8 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
             "cases": len(bwd)})
     if window is not None:
         rows += decode_window_rows(window, serve_paged, spec)
+    if int8 is not None:
+        rows += int8_rows(*int8)
     return {"kernels": rows}
 
 
@@ -2103,6 +2750,8 @@ def main() -> int:
     phase_build()
     fwd, dec = phase_kernels()
     window = phase_decode_kernels()
+    dec8, window8 = phase_int8_decode_kernels()
+    qmm_cases = phase_kernel_qmm()
     fwd_drop = phase_kernel1_dropout()
     bwd = phase_backward()
     torch.cuda.empty_cache()
@@ -2121,6 +2770,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity_paged()
     torch.cuda.empty_cache()
+    int8_runs, module = phase_serve_int8(serve_paged)
+    phase_profile_paged(module, pool_pages=int8_runs["paged"]["pool_pages"],
+                        suffix="_int8")
+    del module
+    torch.cuda.empty_cache()
+    phase_serve_cli(int8=True)
+    phase_parity_int8()
+    torch.cuda.empty_cache()
     train, engine = phase_train()
     phase_train_profile(engine)
     del engine
@@ -2130,7 +2787,8 @@ def main() -> int:
     phase_train_cli()
     print(card, flush=True)
     emit(kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window,
-                      serve_paged, spec))
+                      serve_paged, spec,
+                      (dec8, window8, qmm_cases, int8_runs)))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -22,8 +22,10 @@ len``, capped at the longest prompt the server admits beside
 ``--slots`` slots, runs it to completion and prints one JSON line per
 completion and a summary line; the recipe's ``Model.kv_page_size`` /
 ``kv_pool_pages`` turn the paged server on and
-``Generation.spec_method`` / ``spec_tokens`` speculative decoding, as
-in the JAX package (no flag of their own). Both draw their weights from
+``Generation.spec_method`` / ``spec_tokens`` speculative decoding, and
+``Model.kv_cache_dtype=int8`` / ``Model.quant_execution=weight_only_int8``
+the int8 KV cache and the int8 dense sites, as in the JAX package (no
+flag of their own). Both draw their weights from
 ``Global.seed`` (they load no checkpoint yet). All three run on the card
 unless ``--device cpu``.
 """

@@ -259,8 +259,8 @@ def kv_page_bytes(num_heads: int, head_dim: int, page_size: int,
                   kv_cache_dtype: str = "bf16") -> int:
     """Device bytes ONE K or V page costs per layer: ``bf16``, 2 bytes
     per element; ``int8``, 1 byte per element plus one fp32 scale per
-    (head, position) (the JAX package's int8 cache, which the port
-    does not serve yet; kept so both packages size pools alike)."""
+    (head, position) (the int8 cache, sized as the JAX package sizes
+    it)."""
     if kv_cache_dtype == "int8":
         per_token = num_heads * (head_dim + 4)
     elif kv_cache_dtype == "bf16":

@@ -701,8 +701,10 @@ class GenerationServer:
             s["pool_pages"] = self._alloc.num_pages
             s["pages_in_use"] = self._alloc.pages_in_use
             s["prefill_chunks"] = self._prefill_chunk_count
+            # density: the same pool bytes hold ~1.9x the pages in int8
+            s["kv_cache_dtype"] = cfg.kv_cache_dtype
             s["pool_bytes"] = pool_bytes(
                 cfg.num_layers, cfg.num_attention_heads, cfg.head_dim,
-                self._page, self._alloc.num_pages)
+                self._page, self._alloc.num_pages, cfg.kv_cache_dtype)
             s.update(self._alloc.stats)
         return s

@@ -1,6 +1,8 @@
-// Shared device helpers of the port's attention kernels: stores from
-// the fp32 the kernels compute in to the storage types (bf16, fp32),
-// and 16-byte vector loads that widen to fp32.
+// Shared device helpers of the port's kernels: stores from the fp32 the
+// kernels compute in to the storage types (bf16, fp32), 16-byte vector
+// loads that widen to fp32, the int8 cache's 8-byte loads that widen
+// and dequantize, and the bf16 mma.sync product of the tensor-core
+// kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,11 +46,12 @@ static __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
   }
 }
 
-// One 16-byte vector kept as loaded (4 registers whatever T is), to be
-// widened to fp32 where it is used: a kernel that holds several loads
+// One vector kept as loaded (16 bytes: 4 registers whatever T is), to
+// be widened to fp32 where it is used: a kernel that holds several loads
 // in flight spends half the registers on bf16 data this way.
-static __device__ __forceinline__ uint4 load_raw(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
+template <typename Raw = uint4>
+static __device__ __forceinline__ Raw load_raw(const void* p) {
+  return *reinterpret_cast<const Raw*>(p);
 }
 static __device__ __forceinline__ void widen(const uint4& r, float* out,
                                              const float*) {
@@ -66,6 +69,62 @@ static __device__ __forceinline__ void widen(const uint4& r, float* out,
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// Load n contiguous elements (n a multiple of one 16-byte vector) and
+// widen them to fp32.
+template <int n, typename T>
+static __device__ __forceinline__ void load_vecs(const T* p, float* out) {
+#pragma unroll
+  for (int c = 0; c < n / Vec<T>::N; ++c)
+    load_vec(p + c * Vec<T>::N, out + c * Vec<T>::N);
+}
+
+// How a decode kernel holds one lane's slice of a cached key row: N
+// elements in one raw vector as loaded. bf16 and fp32 load 16 bytes;
+// int8 loads 8 (8 elements), so an int8 row is read by as many lanes
+// as a bf16 one.
+template <typename C>
+struct KvSlice {
+  using Raw = uint4;
+  static constexpr int N = 16 / sizeof(C);
+};
+template <>
+struct KvSlice<int8_t> {
+  using Raw = uint2;
+  static constexpr int N = 8;
+};
+
+// Eight int8 values widened and dequantized: each one explicitly
+// rounded product float(q8) * scale, the JAX kernel's
+// `k.astype(f32) * scale`.
+static __device__ __forceinline__ void widen_int8(const uint2& r, float* out,
+                                                  float scale) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t w = i < 4 ? r.x : r.y;
+    const int8_t q8 = static_cast<int8_t>((w >> (8 * (i % 4))) & 0xffu);
+    out[i] = __fmul_rn(static_cast<float>(q8), scale);
+  }
+}
+
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+static __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a * b: one m16n8k16 product, bf16 operands, fp32 accumulator
+static __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace pfx

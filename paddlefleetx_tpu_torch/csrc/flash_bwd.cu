@@ -67,24 +67,9 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;   // rows of every tile (keys and queries)
 constexpr int kPad = 8;     // bf16 elements of row padding (16 B)
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a * b: one m16n8k16 product, bf16 operands, fp32 accumulator
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using pfx::ld_u32;
+using pfx::mma_bf16;
+using pfx::pack_bf16;
 
 // The A fragment (rows row0 .. row0 + 15, k columns kk*16 ..) of a
 // row-major [rows][ld] bf16 tile in shared memory.

@@ -17,16 +17,31 @@
 // plain decode). The bias (kernel 2's shared-offset entry only) is
 // added to the score, as on the TPU.
 //
+// Each instance also reads an int8 cache (`kv_cache_dtype: int8`, the
+// `quantized=True` branch of the same TPU kernels, :1088-1117 and
+// :1536-1559): K and V are int8 with one fp32 scale per (row, head,
+// position), and every element is dequantized as it is widened, with
+// one explicitly rounded product float(q8) * scale - the TPU kernel's
+// `k.astype(f32) * scale`. The cache type is a template parameter apart
+// from the query / output type: an int8 key row is loaded 8 bytes (8
+// elements) a lane, so it is read by as many lanes as a bf16 row and the
+// key -> stream -> lane mapping, and with it the bit-exactness below,
+// is the bf16 instance's. The lane group loads each key's K and V scale
+// once. Folding the scale out of the dot product would save multiplies
+// but change the rounding.
+//
 // Layout: q and O are [b, W, h, d]; the contiguous cache is [b, h, S, d]
 // (a key's d values contiguous, the port's layout); the paged pool is
 // [P, h, page, d] and row i's logical key `key` lives at
 //   pool + ((pt[i * max_pages + key / page] * h + head) * page
 //           + key % page) * d,
-// so a key row never straddles two pages and its 16-byte loads stay in
-// one page. Bias is [b, S] fp32.
+// so a key row never straddles two pages and its vector loads stay in
+// one page. The int8 cache's scales are the cache minus its d axis:
+// [b, h, S] contiguous, [P, h, page] paged. Bias is [b, S] fp32.
 //
 // What bounds them on this card: memory. Each live key costs 2 d
-// itemsize bytes (its K and V rows), read once for all W queries,
+// itemsize bytes (its K and V rows; 2 (d + 4) under int8), read once
+// for all W queries,
 // against 4 d W FLOPs: W bf16 FLOPs per byte, so the least time is the
 // live cache bytes over 3.35 TB/s until W is large. Compute takes over
 // only near W = 32, where fp32 on CUDA cores reaches about 20 FLOP/B,
@@ -58,6 +73,8 @@
 // W = 5; the later passes read the keys again, mostly from L2). Left
 // for later work: split-KV across blocks, wgmma / TMA.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -71,6 +88,8 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
+  const float* ks;      // int8 cache: K scales ([b, h, S] / [P, h, page])
+  const float* vs;      // and V scales; both null for a bf16 / fp32 cache
   const int* offsets;   // [b], or null: shared_offset for every row
   int shared_offset;
   const float* bias;    // [b, S] or null
@@ -84,9 +103,12 @@ struct Args {
   float sm_scale;
 };
 
-template <typename T, int D, int G, bool kPaged>
+// T: the query and output type; C: the cache's (T, or int8_t)
+template <typename T, typename C, int D, int G, bool kPaged>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
-  constexpr int kVec = pfx::Vec<T>::N;       // elements per 16-byte load
+  constexpr bool kInt8 = std::is_same<C, int8_t>::value;
+  using Raw = typename pfx::KvSlice<C>::Raw;
+  constexpr int kVec = pfx::KvSlice<C>::N;   // elements per lane load
   constexpr int kLpk = D / kVec;             // lanes per key row
   static_assert(D % kVec == 0 && kLpk >= 1 && kLpk <= 32 &&
                     (32 % kLpk) == 0,
@@ -110,18 +132,22 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
 
   const int off = a.offsets != nullptr ? a.offsets[bi] : a.shared_offset;
   const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const C* k = static_cast<const C*>(a.k);
+  const C* v = static_cast<const C*>(a.v);
   T* o = static_cast<T*>(a.o);
   const long long row_head = (long long)bi * h + hi;
-  // contiguous: this (row, head)'s cache rows; paged: the row's table
+  // contiguous: this (row, head)'s cache rows (and scale rows); paged:
+  // the row's table
   const long long row_off = kPaged ? 0 : row_head * (long long)a.S * D;
-  const T* kb = k + row_off + gl * kVec;
-  const T* vb = v + row_off + gl * kVec;
+  const C* kb = k + row_off + gl * kVec;
+  const C* vb = v + row_off + gl * kVec;
+  const long long srow = kPaged ? 0 : row_head * (long long)a.S;
+  const float* ksb = kInt8 ? a.ks + srow : nullptr;
+  const float* vsb = kInt8 ? a.vs + srow : nullptr;
   const int* pt_row = kPaged ? a.pt + (long long)bi * a.max_pages : nullptr;
   const float* brow =
       a.bias != nullptr ? a.bias + (long long)bi * a.S : nullptr;
-  const T* tag = nullptr;
+  const C* tag = nullptr;
 
   for (int g0 = 0; g0 < a.w; g0 += G) {
     const int nq = min(G, a.w - g0);   // queries of this pass
@@ -137,9 +163,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       if (j < nq) {
-        pfx::load_vec(q + (((long long)bi * a.w + g0 + j) * h + hi) * D +
-                          gl * kVec,
-                      qv[j]);
+        pfx::load_vecs<kVec>(
+            q + (((long long)bi * a.w + g0 + j) * h + hi) * D + gl * kVec,
+            qv[j]);
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) qv[j][e] = 0.f;
@@ -150,48 +176,64 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
       for (int e = 0; e < kVec; ++e) acc[j][e] = 0.f;
     }
     int cur_lp = -1;            // logical page the pointers below are at
-    const T* kp = nullptr;
-    const T* vp = nullptr;
+    const C* kp = nullptr;
+    const C* vp = nullptr;
+    const float* ksp = ksb;
+    const float* vsp = vsb;
 
     // the loop bounds are uniform across the block, so every lane
     // reaches every shuffle; a key past a query's own position is
     // skipped lane-group by lane-group
     for (int base = 0; base < nk_max; base += kStreams * kUnroll) {
-      uint4 kr[kUnroll], vr[kUnroll];
+      Raw kr[kUnroll], vr[kUnroll];
+      float ksc[kUnroll], vsc[kUnroll];   // int8 only: the keys' scales
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int key = base + u * kStreams + stream;
+        ksc[u] = vsc[u] = 0.f;
         if (key < nk_max) {
-          long long r;
+          int col;   // the key's position in its cache row or page
           if constexpr (kPaged) {
             const int lp = key / a.page;
             if (lp != cur_lp) {
               cur_lp = lp;
-              const long long pg =
-                  ((long long)pt_row[lp] * h + hi) * (long long)a.page * D +
-                  gl * kVec;
-              kp = k + pg;
-              vp = v + pg;
+              const long long spg =
+                  ((long long)pt_row[lp] * h + hi) * (long long)a.page;
+              kp = k + spg * D + gl * kVec;
+              vp = v + spg * D + gl * kVec;
+              if constexpr (kInt8) {
+                ksp = a.ks + spg;
+                vsp = a.vs + spg;
+              }
             }
-            r = (long long)(key - lp * a.page) * D;
+            col = key - lp * a.page;
           } else {
             kp = kb;
             vp = vb;
-            r = (long long)key * D;
+            col = key;
           }
-          kr[u] = pfx::load_raw(kp + r);
-          vr[u] = pfx::load_raw(vp + r);
+          kr[u] = pfx::load_raw<Raw>(kp + (long long)col * D);
+          vr[u] = pfx::load_raw<Raw>(vp + (long long)col * D);
+          if constexpr (kInt8) {
+            ksc[u] = ksp[col];
+            vsc[u] = vsp[col];
+          }
         } else {
-          kr[u] = make_uint4(0u, 0u, 0u, 0u);
-          vr[u] = make_uint4(0u, 0u, 0u, 0u);
+          kr[u] = Raw{};
+          vr[u] = Raw{};
         }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int key = base + u * kStreams + stream;
         float kx[kVec], vx[kVec];
-        pfx::widen(kr[u], kx, tag);
-        pfx::widen(vr[u], vx, tag);
+        if constexpr (kInt8) {
+          pfx::widen_int8(kr[u], kx, ksc[u]);
+          pfx::widen_int8(vr[u], vx, vsc[u]);
+        } else {
+          pfx::widen(kr[u], kx, tag);
+          pfx::widen(vr[u], vx, tag);
+        }
 #pragma unroll
         for (int j = 0; j < G; ++j) {
           if (j < nq) {   // uniform across the block
@@ -249,22 +291,31 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   }
 }
 
-template <typename T, int D, int G, bool kPaged>
+template <typename T, typename C, int D, int G, bool kPaged>
 int launch(const Args& a, int b, cudaStream_t stream) {
-  decode_kernel<T, D, G, kPaged><<<b * a.h, kThreads, 0, stream>>>(a);
+  decode_kernel<T, C, D, G, kPaged><<<b * a.h, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the cache is int8 when scales are given, else of the query's type
+template <typename T, int G, bool kPaged>
+int dispatch_cache(const Args& a, int b, int d, cudaStream_t st) {
+  if (a.ks != nullptr) {
+    if (d == 64) return launch<T, int8_t, 64, G, kPaged>(a, b, st);
+    if (d == 128) return launch<T, int8_t, 128, G, kPaged>(a, b, st);
+  } else {
+    if (d == 64) return launch<T, T, 64, G, kPaged>(a, b, st);
+    if (d == 128) return launch<T, T, 128, G, kPaged>(a, b, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int G, bool kPaged>
 int dispatch(const Args& a, int b, int d, int is_bf16, cudaStream_t st) {
-  if (is_bf16) {
-    if (d == 64) return launch<__nv_bfloat16, 64, G, kPaged>(a, b, st);
-    if (d == 128) return launch<__nv_bfloat16, 128, G, kPaged>(a, b, st);
-  } else {
-    if (d == 64) return launch<float, 64, G, kPaged>(a, b, st);
-    if (d == 128) return launch<float, 128, G, kPaged>(a, b, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if ((a.ks == nullptr) != (a.vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16) return dispatch_cache<__nv_bfloat16, G, kPaged>(a, b, d, st);
+  return dispatch_cache<float, G, kPaged>(a, b, d, st);
 }
 
 // a window of 2..32 queries: groups of 4 (W <= 4) or 8 per pass
@@ -278,13 +329,15 @@ int dispatch_window(const Args& a, int b, int d, int is_bf16,
 }
 
 Args make_args(const void* q, const void* k, const void* v,
-               const int* offsets, int shared_offset, const float* bias,
-               const int* pt, void* o, int h, int w, int S, int page,
-               int max_pages, float sm_scale) {
+               const float* ks, const float* vs, const int* offsets,
+               int shared_offset, const float* bias, const int* pt, void* o,
+               int h, int w, int S, int page, int max_pages, float sm_scale) {
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
+  a.ks = ks;
+  a.vs = vs;
   a.offsets = offsets;
   a.shared_offset = shared_offset;
   a.bias = bias;
@@ -303,20 +356,22 @@ Args make_args(const void* q, const void* k, const void* v,
 
 // Each entry point returns a cudaError_t: 0 on a successful launch. The
 // kernels run on `stream` and do not synchronise; the caller allocates
-// o ([b, W, h, d], q's shape).
+// o ([b, W, h, d], q's shape). `ks` / `vs` are the int8 cache's fp32
+// scales, or both null for a cache of q's type.
 
 // Kernel 2: one query per row over the contiguous [b, h, S, d] cache.
 // `offsets` is a [b] int32 device array, or null to use `shared_offset`
 // (with the optional [b, S] bias) for every row.
 extern "C" int pfx_flash_decode(const void* q, const void* k, const void* v,
+                                const float* ks, const float* vs,
                                 const int* offsets, int shared_offset,
                                 const float* bias, void* o, int b, int h,
                                 int S, int d, float sm_scale, int is_bf16,
                                 void* stream) {
   if (b <= 0 || h <= 0 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, k, v, offsets, shared_offset, bias, nullptr,
-                           o, h, 1, S, 0, 0, sm_scale);
+  const Args a = make_args(q, k, v, ks, vs, offsets, shared_offset, bias,
+                           nullptr, o, h, 1, S, 0, 0, sm_scale);
   return dispatch<1, false>(a, b, d, is_bf16,
                             static_cast<cudaStream_t>(stream));
 }
@@ -324,14 +379,15 @@ extern "C" int pfx_flash_decode(const void* q, const void* k, const void* v,
 // Kernel 5: a window of w (2..32) queries per row at positions
 // offsets[i] + j over the contiguous cache; no bias.
 extern "C" int pfx_flash_decode_verify(const void* q, const void* k,
-                                       const void* v, const int* offsets,
+                                       const void* v, const float* ks,
+                                       const float* vs, const int* offsets,
                                        void* o, int b, int w, int h, int S,
                                        int d, float sm_scale, int is_bf16,
                                        void* stream) {
   if (b <= 0 || h <= 0 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, k, v, offsets, 0, nullptr, nullptr, o, h, w,
-                           S, 0, 0, sm_scale);
+  const Args a = make_args(q, k, v, ks, vs, offsets, 0, nullptr, nullptr, o,
+                           h, w, S, 0, 0, sm_scale);
   return dispatch_window<false>(a, b, d, is_bf16,
                                 static_cast<cudaStream_t>(stream));
 }
@@ -339,7 +395,8 @@ extern "C" int pfx_flash_decode_verify(const void* q, const void* k,
 // Kernel 6a: one query per row through the [b, max_pages] int32 page
 // table `pt` over the [P, h, page, d] pool; per-row offsets.
 extern "C" int pfx_flash_decode_paged(const void* q, const void* k,
-                                      const void* v, const int* offsets,
+                                      const void* v, const float* ks,
+                                      const float* vs, const int* offsets,
                                       const int* pt, void* o, int b, int h,
                                       int page, int max_pages, int d,
                                       float sm_scale, int is_bf16,
@@ -347,7 +404,7 @@ extern "C" int pfx_flash_decode_paged(const void* q, const void* k,
   if (b <= 0 || h <= 0 || page <= 0 || max_pages <= 0 || pt == nullptr ||
       offsets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, k, v, offsets, 0, nullptr, pt, o, h, 1,
+  const Args a = make_args(q, k, v, ks, vs, offsets, 0, nullptr, pt, o, h, 1,
                            page * max_pages, page, max_pages, sm_scale);
   return dispatch<1, true>(a, b, d, is_bf16,
                            static_cast<cudaStream_t>(stream));
@@ -355,12 +412,13 @@ extern "C" int pfx_flash_decode_paged(const void* q, const void* k,
 
 // Kernel 6b: kernel 5's window through the page table.
 extern "C" int pfx_flash_decode_paged_verify(
-    const void* q, const void* k, const void* v, const int* offsets,
-    const int* pt, void* o, int b, int w, int h, int page, int max_pages,
-    int d, float sm_scale, int is_bf16, void* stream) {
+    const void* q, const void* k, const void* v, const float* ks,
+    const float* vs, const int* offsets, const int* pt, void* o, int b,
+    int w, int h, int page, int max_pages, int d, float sm_scale,
+    int is_bf16, void* stream) {
   if (b <= 0 || h <= 0 || page <= 0 || max_pages <= 0 || pt == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, k, v, offsets, 0, nullptr, pt, o, h, w,
+  const Args a = make_args(q, k, v, ks, vs, offsets, 0, nullptr, pt, o, h, w,
                            page * max_pages, page, max_pages, sm_scale);
   return dispatch_window<true>(a, b, d, is_bf16,
                                static_cast<cudaStream_t>(stream));

@@ -4,8 +4,12 @@
 Same fields, defaults and ``from_config`` as the JAX package, so one
 YAML ``Model`` section builds either model. The knobs whose code paths
 this port does not have yet raise ``NotImplementedError`` at
-construction instead of being ignored: the int8 KV cache, weight-only
-int8 execution, LoRA, MoE and context parallelism. Paged KV
+construction instead of being ignored: LoRA, MoE, context parallelism
+and unfused q/k/v projections. The serving path's int8 knobs act:
+``kv_cache_dtype: int8`` (an int8 KV cache with fp32 scales, read by
+the decode kernels' int8 instances) and ``quant_execution:
+weight_only_int8`` (the dense sites through the int8 matmul kernel;
+serving only, training raises). Paged KV
 (``kv_page_size``, ``kv_pool_pages``) is validated word for word as in
 the JAX package, so a YAML is accepted or refused alike by both. The training knobs act on the
 training path (``model.py``): ``use_recompute`` and all four
@@ -134,8 +138,6 @@ class GPTConfig:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute dtype {self.dtype!r}")
         unported = {
-            "kv_cache_dtype": self.kv_cache_dtype == "int8",
-            "quant_execution": self.quant_execution != "off",
             "lora_rank": self.lora_rank != 0,
             "lora_num_adapters": self.lora_num_adapters != 0,
             "moe_num_experts": self.moe_num_experts != 0,
@@ -146,8 +148,8 @@ class GPTConfig:
         if asked:
             raise NotImplementedError(
                 f"GPTConfig knobs not ported to the PyTorch package yet: "
-                f"{asked} (int8 KV, int8 execution, LoRA, MoE, context "
-                f"parallelism and unfused q/k/v are later slices)")
+                f"{asked} (LoRA, MoE, context parallelism and unfused "
+                f"q/k/v are later slices)")
 
     @property
     def head_dim(self) -> int:

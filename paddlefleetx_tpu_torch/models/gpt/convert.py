@@ -16,7 +16,11 @@ Layouts (flax -> torch, ``nn.Linear`` stores ``[out, in]``):
 - ``linear1`` / ``linear2`` kernels ``[in, out]`` -> ``[out, in]``;
 - LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
 - the tied ``word_embeddings`` and the ``position_embeddings`` tables
-  as they are.
+  as they are;
+- a quantized tree's (``quant_execution: weight_only_int8``) int8
+  kernels move as the fp ones do, and each ``kernel_scale`` becomes
+  the site's ``weight_scale``: ``[3, nh, hd]`` -> ``[3*nh*hd]`` for
+  ``qkv_proj``, ``[N]`` as it is for the others.
 
 The decoder stack comes either unrolled (``decoder_{i}`` subtrees) or
 scanned (one ``decoder`` subtree whose leaves lead with the layer
@@ -44,10 +48,16 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+#: the dense sites of a layer, by their torch prefix and flax path
+_SITES = (("self_attn.qkv_proj", ("self_attn", "qkv_proj")),
+          ("self_attn.out_proj", ("self_attn", "out_proj")),
+          ("linear1", ("linear1",)), ("linear2", ("linear2",)))
+
+
 def _layer_from_flax(p: Mapping, cfg: GPTConfig) -> Dict[str, np.ndarray]:
     h = cfg.hidden_size
     attn = p["self_attn"]
-    return {
+    out = {
         "norm1.weight": _np(p["norm1"]["scale"]),
         "norm1.bias": _np(p["norm1"]["bias"]),
         "self_attn.qkv_proj.weight":
@@ -63,11 +73,19 @@ def _layer_from_flax(p: Mapping, cfg: GPTConfig) -> Dict[str, np.ndarray]:
         "linear2.weight": _np(p["linear2"]["kernel"]).T,
         "linear2.bias": _np(p["linear2"]["bias"]),
     }
+    for prefix, path in _SITES:
+        site = p
+        for name in path:
+            site = site[name]
+        if "kernel_scale" in site:
+            out[prefix + ".weight_scale"] = \
+                _np(site["kernel_scale"]).reshape(-1)
+    return out
 
 
 def _layer_to_flax(sd: Mapping[str, np.ndarray], cfg: GPTConfig) -> dict:
     h, nh, hd = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
-    return {
+    tree = {
         "norm1": {"scale": sd["norm1.weight"], "bias": sd["norm1.bias"]},
         "self_attn": {
             "qkv_proj": {
@@ -84,6 +102,15 @@ def _layer_to_flax(sd: Mapping[str, np.ndarray], cfg: GPTConfig) -> dict:
         "linear2": {"kernel": sd["linear2.weight"].T,
                     "bias": sd["linear2.bias"]},
     }
+    for prefix, path in _SITES:
+        scale = sd.get(prefix + ".weight_scale")
+        if scale is not None:
+            site = tree
+            for name in path:
+                site = site[name]
+            site["kernel_scale"] = scale.reshape(
+                (3, nh, hd) if path[-1] == "qkv_proj" else (-1,))
+    return tree
 
 
 def torch_state_dict_from_flax(params: Mapping, cfg: GPTConfig

@@ -314,7 +314,8 @@ def init_slot_state(num_slots: int, vocab_size: int,
 
 def init_slot_cache(model: GPTForPretraining, num_slots: int) -> KVCache:
     """The zeroed persistent ``[slots, heads, capacity, head_dim]``
-    per-layer cache on the model's device."""
+    per-layer cache on the model's device (int8 plus ``[slots, heads,
+    capacity]`` scales under the int8 cache, ``model.init_kv_cache``)."""
     return init_kv_cache(model.config, num_slots,
                          model.word_embeddings.device)
 
@@ -523,8 +524,9 @@ def verify_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
 def init_page_pool(model: GPTForPretraining, cfg: GPTConfig) -> KVCache:
     """The zeroed global page pool of a paged server on the model's
     device: per layer ``(k, v)`` of ``[kv_pool_pages, heads,
-    kv_page_size, head_dim]``. ``cfg`` is the model's config with the
-    server's ``kv_page_size`` / ``kv_pool_pages``."""
+    kv_page_size, head_dim]`` (int8 plus scale pools under the int8
+    cache, ``model.init_kv_pool``). ``cfg`` is the model's config with
+    the server's ``kv_page_size`` / ``kv_pool_pages``."""
     return init_kv_pool(cfg, model.word_embeddings.device)
 
 
@@ -564,15 +566,16 @@ def prefill_chunk_paged(model: GPTForPretraining, pool: KVCache,
 @torch.no_grad()
 def copy_kv_pages(pool: KVCache, src: Sequence[int],
                   dst: Sequence[int]) -> None:
-    """Copy physical pages ``src -> dst`` in every layer's K and V pool,
-    in place: the copy half of a copy-on-write split (the server
-    rewires the page table and the refcounts around it)."""
+    """Copy physical pages ``src -> dst`` in every layer's K and V pool
+    (and an int8 pool's scale pools, or a split page would keep stale
+    scales), in place: the copy half of a copy-on-write split (the
+    server rewires the page table and the refcounts around it)."""
     dev = pool[0][0].device
     s = torch.as_tensor(list(src), device=dev)
     d = torch.as_tensor(list(dst), device=dev)
-    for k_pool, v_pool in pool:
-        k_pool[d] = k_pool[s]
-        v_pool[d] = v_pool[s]
+    for layer in pool:
+        for t in layer:
+            t[d] = t[s]
 
 
 def activate_slot(state: SlotState, slot: int, length: int, dec_count: int,

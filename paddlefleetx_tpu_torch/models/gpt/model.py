@@ -27,7 +27,12 @@ KV cache: one ``(k, v)`` pair per layer, each ``[b, h, S, d]`` with
 ``S = cache_capacity`` (the port's layout, see ``ops/attention.py``),
 or under paged serving a global page pool ``[kv_pool_pages, h,
 kv_page_size, d]`` per layer that every row reaches through its
-``page_table`` row (the JAX pool is ``[P, h, d, page]``). The cache is
+``page_table`` row (the JAX pool is ``[P, h, d, page]``). Under
+``kv_cache_dtype: int8`` each layer holds ``(k, v, k_scale, v_scale)``:
+int8 K and V and one fp32 scale per (row, head, position), ``[b, h,
+S]`` or ``[P, h, page]`` (the JAX ``[b, h, 1, S]`` / ``[P, h, 1,
+page]``); every write quantizes (:func:`quantize_kv`) and writes values
+and scales to the same positions. The cache is
 updated IN PLACE (PyTorch is not functional): a prefill writes
 positions ``0..s-1`` of its rows, a decode step writes ``s >= 1``
 positions per row from that row's offset (``s > 1``: the speculative
@@ -38,12 +43,20 @@ query offset 0 every key past the prompt is causally masked, so this
 equals the JAX package's dense attention over the whole capacity.
 Decode and verify attend over the cache through the decode kernels
 (``ops/attention.py`` lists the routes and their counters); a paged
-prefill chunk takes the JAX package's gather + dense route.
+prefill chunk takes the JAX package's gather + dense route. Under the
+int8 cache the prefill attends over the round-tripped keys and values
+(quantized, then widened back), which is what the JAX package's dense
+prefill reads from its int8 cache.
+
+Under ``quant_execution: weight_only_int8`` the four dense sites (qkv,
+out, fc1, fc2) are :class:`QuantLinear`: an int8 weight and fp32 scales
+through the int8 matmul kernel (``ops/cuda/quantized_matmul.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import List, NamedTuple, Optional, Tuple, Union
 
@@ -52,10 +65,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ...core.quantize import quantize_state_dict
+from ...observability import metrics
 from ...ops.attention import dot_product_attention
+from ...ops.cuda import flash_attention as fa
+from ...ops.cuda import quantized_matmul as qmm
 from .config import GPTConfig
 
-KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
+#: per layer ``(k, v)``, or ``(k, v, k_scale, v_scale)`` for an int8 cache
+KVCache = List[Tuple[torch.Tensor, ...]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _M64 = (1 << 64) - 1
@@ -153,6 +171,77 @@ def recompute_policy(granularity: str):
     return policy
 
 
+class QuantLinear(nn.Module):
+    """Weight-only int8 twin of ``nn.Linear`` at a dense site
+    (``quant_execution: weight_only_int8``; the port of the JAX
+    package's ``_QuantDense``).
+
+    It holds an int8 ``weight`` ``[out, in]`` buffer and an fp32
+    ``weight_scale`` ``[out]`` buffer (the frozen PTQ artifact
+    ``core/quantize.py`` emits) and the ``bias``. A site the kernel
+    admits (in and out multiples of 128) runs the int8 matmul kernel
+    (``quant/matmul``); any other takes the JAX package's own per-site
+    route, dequantize then matmul (``quant/fallback/kernel_rejected``).
+    The scales stay fp32 whatever dtype the module is cast to, as the
+    JAX scales do. Its gradient is not ported: a backward through the
+    kernel raises.
+    """
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.register_buffer("weight", torch.zeros(
+            (out_features, in_features), dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(
+            out_features, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def _apply(self, fn, recurse=True):
+        # the scales move with the module but keep fp32
+        scale = self._buffers.pop("weight_scale")
+        try:
+            super()._apply(fn, recurse)
+            scale = scale.to(fn(scale[:0]).device)
+        finally:
+            self._buffers["weight_scale"] = scale
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ dequant(weight)^T + bias`` over the last dim of x."""
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, self.in_features).contiguous()
+        if qmm.admits(self.in_features, self.out_features):
+            y = qmm.quantized_matmul(x2, self.weight, self.weight_scale)
+            metrics.inc("quant/matmul")
+        else:
+            metrics.inc("quant/fallback/kernel_rejected")
+            w = (self.weight.float() * self.weight_scale[:, None]).to(
+                x.dtype)
+            y = x2 @ w.t()
+        return (y + self.bias.to(y.dtype)).view(*lead, self.out_features)
+
+
+def _dense(cfg: GPTConfig, in_features: int, out_features: int
+           ) -> nn.Module:
+    """A dense site: ``nn.Linear``, or :class:`QuantLinear` under
+    ``quant_execution: weight_only_int8``."""
+    if cfg.quant_execution == "weight_only_int8":
+        return QuantLinear(in_features, out_features)
+    return nn.Linear(in_features, out_features)
+
+
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(row, token, head) abs-max int8 quantization of a
+    ``[b, s, h, d]`` K or V (the port of the JAX package's
+    ``_quantize_kv``): ``(int8 [b, s, h, d], fp32 scales [b, s, h])``,
+    the scale clamped at ``1e-8`` so an all-zero row round-trips."""
+    f = t.float()
+    scale = torch.clamp_min(f.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(f / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention with a fused QKV projection and a per-layer slice
     of the KV cache."""
@@ -160,11 +249,11 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.cfg = cfg
-        self.qkv_proj = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
-        self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.qkv_proj = _dense(cfg, cfg.hidden_size, 3 * cfg.hidden_size)
+        self.out_proj = _dense(cfg, cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
-                kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                kv: Optional[Tuple[torch.Tensor, ...]],
                 cache_rows: Optional[torch.Tensor],
                 decode_offset: Union[int, torch.Tensor, None],
                 dropout_seed: Optional[int] = None,
@@ -192,12 +281,20 @@ class MultiHeadAttention(nn.Module):
             qkv = self.qkv_proj(x).view(b, s, 3, nh, hd)
             q, k, v = (t.contiguous() for t in qkv.unbind(2))  # [b,s,nh,hd]
         use_flash = cfg.use_flash_attention
+        # what lands in the cache: k and v, or under the int8 cache their
+        # int8 values and [b, s, nh] scales, written to the same positions
+        fresh, scales = (k, v), {}
+        if kv is not None and cfg.kv_cache_dtype == "int8":
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            fresh = (kq, vq, ks, vs)
+            scales = {"k_scale": kv[2], "v_scale": kv[3]}
         if paged is not None:
-            for dst, t in zip(kv, (k, v)):
+            for dst, t in zip(kv, fresh):
                 if paged.column is None:
-                    # [b, s, h, d] -> [b, cp, h, page, d] page-major blocks
+                    # [b, s, h(, d)] -> [b, cp, h, page(, d)] page-major
+                    # blocks
                     cp = paged.pids.shape[1]
-                    dst[paged.pids] = t.view(b, cp, -1, nh, hd).transpose(
+                    dst[paged.pids] = t.unflatten(1, (cp, -1)).transpose(
                         2, 3)
                 else:
                     # advanced indices on dims 0 and 2 put [b, s] first
@@ -207,18 +304,23 @@ class MultiHeadAttention(nn.Module):
                                         query_offset=paged.offset,
                                         use_flash=use_flash,
                                         kv_cache_layout=True,
-                                        page_table=paged.page_table)
+                                        page_table=paged.page_table,
+                                        **scales)
         elif kv is None or decode_offset is None:
             rate = cfg.attention_probs_dropout_prob \
                 if dropout_seed is not None else 0.0
+            if scales:
+                # the JAX package's prefill reads its int8 cache back
+                k = fa.dequantize_cache(kq, ks).to(k.dtype)
+                v = fa.dequantize_cache(vq, vs).to(v.dtype)
             with _site("attn" if use_flash else "core_attn"):
                 out = dot_product_attention(
                     q, k, v, attn_bias, causal=True, use_flash=use_flash,
                     dropout_rate=rate,
                     dropout_seed=dropout_seed if rate > 0.0 else None)
             if kv is not None:
-                for cache, t in zip(kv, (k, v)):
-                    t = t.permute(0, 2, 1, 3)                 # [b, nh, s, hd]
+                for cache, t in zip(kv, fresh):
+                    t = t.transpose(1, 2)               # [b, nh, s(, hd)]
                     if cache_rows is None:
                         cache[:b, :, :s] = t
                     else:
@@ -229,7 +331,7 @@ class MultiHeadAttention(nn.Module):
                 pos = decode_offset.clamp(0, cap - 1)
                 rows = torch.arange(b, device=x.device)
                 if s == 1:
-                    for cache, t in zip(kv, (k, v)):
+                    for cache, t in zip(kv, fresh):
                         cache[rows, :, pos.long()] = t[:, 0]
                 else:
                     # the verify window: row i's tokens at pos[i] + j;
@@ -237,7 +339,7 @@ class MultiHeadAttention(nn.Module):
                     # by the next window before any read
                     wpos = (pos.long()[:, None] + torch.arange(
                         s, device=x.device)[None, :]).clamp(0, cap - 1)
-                    for cache, t in zip(kv, (k, v)):
+                    for cache, t in zip(kv, fresh):
                         cache[rows[:, None], :, wpos] = t
                 offset = pos.to(torch.int32)
             else:
@@ -246,12 +348,12 @@ class MultiHeadAttention(nn.Module):
                         "a multi-token window against the cache takes "
                         "per-row offsets")
                 offset = min(max(int(decode_offset), 0), cap - 1)
-                for cache, t in zip(kv, (k, v)):
+                for cache, t in zip(kv, fresh):
                     cache[:, :, offset] = t[:, 0]
             out = dot_product_attention(q, kv[0], kv[1], attn_bias,
                                         causal=True, query_offset=offset,
                                         use_flash=use_flash,
-                                        kv_cache_layout=True)
+                                        kv_cache_layout=True, **scales)
         with _site("attn_out"):
             return self.out_proj(out.reshape(b, s, nh * hd))
 
@@ -313,8 +415,8 @@ class TransformerDecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.self_attn = MultiHeadAttention(cfg)
         self.norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.linear1 = nn.Linear(cfg.hidden_size, cfg.ffn_hidden_size)
-        self.linear2 = nn.Linear(cfg.ffn_hidden_size, cfg.hidden_size)
+        self.linear1 = _dense(cfg, cfg.hidden_size, cfg.ffn_hidden_size)
+        self.linear2 = _dense(cfg, cfg.ffn_hidden_size, cfg.hidden_size)
 
     def forward(self, x, attn_bias=None, kv=None, cache_rows=None,
                 decode_offset=None, dropout_seed=None,
@@ -533,9 +635,31 @@ def build_model(cfg: GPTConfig, device: torch.device,
     ``convert.torch_state_dict_from_flax``) or drawn from ``seed``.
     Serving (``train=False``): the weights in ``cfg.dtype``, eval mode.
     Training: fp32 master weights, train mode; the forward computes in
-    ``cfg.dtype`` under :func:`compute_context`."""
+    ``cfg.dtype`` under :func:`compute_context`.
+
+    Under ``quant_execution: weight_only_int8`` (serving only) the dense
+    sites load int8 weights and fp32 scales: those of ``state_dict``
+    (``core/quantize.py::quantize_state_dict`` or the converter), and
+    any fp dense weight it holds, or the fp32 weights drawn from
+    ``seed`` when it is None, quantized here first (the JAX workflow
+    "train, quantize the checkpoint, serve"), before the cast to the
+    compute dtype."""
+    quant = cfg.quant_execution == "weight_only_int8"
+    if quant and train:
+        raise NotImplementedError(
+            "training under quant_execution is not ported: the int8 "
+            "matmul's gradient is a later slice")
     with torch.device(device):
         model = GPTForPretraining(cfg)
+    if quant:
+        if state_dict is None:
+            fp_cfg = dataclasses.replace(cfg, quant_execution="off")
+            with torch.device(device):
+                fp = GPTForPretraining(fp_cfg)
+            init_weights(fp, seed)
+            state_dict = fp.state_dict()
+            del fp
+        state_dict, _ = quantize_state_dict(state_dict)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:
@@ -545,29 +669,40 @@ def build_model(cfg: GPTConfig, device: torch.device,
     return model.to(compute_dtype(cfg)).eval()
 
 
+def _zeroed_kv(cfg: GPTConfig, shape, device: torch.device) -> KVCache:
+    """Per layer ``(k, v)`` of ``shape`` in the compute dtype, or under
+    the int8 cache ``(k, v, k_scale, v_scale)``: int8 values and fp32
+    scales of ``shape`` minus its d axis."""
+    def zeros(shp, dtype):
+        return torch.zeros(shp, dtype=dtype, device=device)
+    if cfg.kv_cache_dtype == "int8":
+        return [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                 zeros(shape[:-1], torch.float32),
+                 zeros(shape[:-1], torch.float32))
+                for _ in range(cfg.num_layers)]
+    dtype = compute_dtype(cfg)
+    return [(zeros(shape, dtype), zeros(shape, dtype))
+            for _ in range(cfg.num_layers)]
+
+
 def init_kv_pool(cfg: GPTConfig, device: torch.device) -> KVCache:
     """A zeroed paged pool: per layer a ``(k, v)`` pair of
     ``[kv_pool_pages, heads, kv_page_size, head_dim]`` in the compute
-    dtype (``cfg`` must carry ``kv_page_size`` / ``kv_pool_pages``)."""
+    dtype, or int8 with ``[kv_pool_pages, heads, kv_page_size]`` fp32
+    scale pools under the int8 cache (``cfg`` must carry
+    ``kv_page_size`` / ``kv_pool_pages``)."""
     if not cfg.kv_page_size or not cfg.kv_pool_pages:
         raise ValueError("init_kv_pool needs kv_page_size and "
                          "kv_pool_pages")
-    shape = (cfg.kv_pool_pages, cfg.num_attention_heads, cfg.kv_page_size,
-             cfg.head_dim)
-    dtype = compute_dtype(cfg)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.num_layers)]
+    return _zeroed_kv(cfg, (cfg.kv_pool_pages, cfg.num_attention_heads,
+                            cfg.kv_page_size, cfg.head_dim), device)
 
 
 def init_kv_cache(cfg: GPTConfig, batch: int, device: torch.device
                   ) -> KVCache:
     """A zeroed cache: per layer a ``(k, v)`` pair of
-    ``[batch, heads, cache_capacity, head_dim]`` in the compute
-    dtype."""
-    shape = (batch, cfg.num_attention_heads, cfg.cache_capacity,
-             cfg.head_dim)
-    dtype = compute_dtype(cfg)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.num_layers)]
+    ``[batch, heads, cache_capacity, head_dim]`` in the compute dtype,
+    or int8 with ``[batch, heads, cache_capacity]`` fp32 scales under
+    the int8 cache."""
+    return _zeroed_kv(cfg, (batch, cfg.num_attention_heads,
+                            cfg.cache_capacity, cfg.head_dim), device)

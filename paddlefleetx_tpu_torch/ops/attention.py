@@ -43,10 +43,20 @@ dot_product_attention``, with its counter names
   offset or a bias against the contiguous cache) raise
   ``NotImplementedError``.
 
+An int8 cache (``kv_cache_dtype: int8``) comes with ``k_scale`` /
+``v_scale``: each kernel branch takes its int8 instance and fires the
+JAX counter with ``_int8`` appended (``attention/flash_decode_int8``,
+``…_ragged_int8``, ``…_ragged_verify_int8``, ``…_paged_int8``,
+``…_paged_verify_int8``); the dense route widens the cache up front,
+``(k.float() * k_scale).to(q.dtype)``, and attends as it would over a
+bf16 cache, as the JAX package's dense route does.
+
 Layout: ``q [b, sq, h, d]``; ``k/v [b, skv, h, d]``, or with
 ``kv_cache_layout`` the cache ``[b, h, S, d]`` or, with a page table,
 the pool ``[P, h, page, d]`` (the port's layouts; the JAX package keeps
-``[b, h, d, S]`` and ``[P, h, d, page]``). Output ``[b, sq, h, d]``.
+``[b, h, d, S]`` and ``[P, h, d, page]``); an int8 cache's scales are
+``[b, h, S]`` / ``[P, h, page]`` (the JAX package's ``[b, h, 1, S]`` /
+``[P, h, 1, page]``). Output ``[b, sq, h, d]``.
 """
 
 from __future__ import annotations
@@ -101,6 +111,26 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(weights.to(v.dtype), vv).permute(0, 2, 1, 3)
 
 
+def _dense_over_cache(q, k, v, bias, causal, query_offset, kv_cache_layout,
+                      page_table, k_scale, v_scale, dropout_rate=0.0,
+                      dropout_seed=None) -> torch.Tensor:
+    """The dense route (``attention/dense``): a paged pool gathered back
+    into per-row caches (scales too), an int8 cache widened up front
+    with its scales to q's dtype, then :func:`dense_attention`."""
+    metrics.inc("attention/dense")
+    if page_table is not None:
+        k = fa.gather_kv_pages(k, page_table)
+        v = fa.gather_kv_pages(v, page_table)
+        if k_scale is not None:
+            k_scale = fa.gather_kv_pages(k_scale, page_table)
+            v_scale = fa.gather_kv_pages(v_scale, page_table)
+    if k_scale is not None:
+        k = fa.dequantize_cache(k, k_scale).to(q.dtype)
+        v = fa.dequantize_cache(v, v_scale).to(q.dtype)
+    return dense_attention(q, k, v, bias, causal, query_offset,
+                           kv_cache_layout, dropout_rate, dropout_seed)
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           causal: bool = True,
@@ -109,7 +139,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_cache_layout: bool = False,
                           dropout_rate: float = 0.0,
                           dropout_seed: Optional[int] = None,
-                          page_table: Optional[torch.Tensor] = None
+                          page_table: Optional[torch.Tensor] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Causal attention through the port's kernels (see the module
     docstring for the dispatch and its counters).
@@ -134,21 +166,28 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         page_table (torch.Tensor): ``[b, max_pages]`` int32 physical
             page ids of each row's logical pages (requires
             ``kv_cache_layout``).
+        k_scale, v_scale (torch.Tensor): an int8 cache's fp32 scales,
+            the cache minus its d axis (both or neither; require
+            ``kv_cache_layout``).
 
     Returns:
         ``[b, sq, h, d]`` in q's dtype.
     """
     ragged = torch.is_tensor(query_offset) and query_offset.dim() == 1
+    if (k_scale is None) is not (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    if k_scale is not None and not kv_cache_layout:
+        raise ValueError("KV scales require kv_cache_layout (the int8 "
+                         "cache is decode-only)")
     if page_table is not None and not kv_cache_layout:
         raise ValueError("page_table requires kv_cache_layout")
+    int8 = "_int8" if k_scale is not None else ""
+    scales = {"k_scale": k_scale, "v_scale": v_scale}
     if not use_flash:
         metrics.inc("attention/fallback/flash_disabled")
-        metrics.inc("attention/dense")
-        if page_table is not None:
-            k = fa.gather_kv_pages(k, page_table)
-            v = fa.gather_kv_pages(v, page_table)
-        return dense_attention(q, k, v, bias, causal, query_offset,
-                               kv_cache_layout, dropout_rate, dropout_seed)
+        return _dense_over_cache(q, k, v, bias, causal, query_offset,
+                                 kv_cache_layout, page_table, k_scale,
+                                 v_scale, dropout_rate, dropout_seed)
     window = q.shape[1]
     if kv_cache_layout:
         if dropout_rate > 0.0:
@@ -159,24 +198,21 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1 < window <= fa.MAX_VERIFY_WINDOW
         if page_table is not None:
             if causal and ragged and bias is None and window == 1:
-                metrics.inc("attention/flash_decode_paged")
+                metrics.inc("attention/flash_decode_paged" + int8)
                 return fa.flash_decode_paged(q, k, v, query_offset,
-                                             page_table)
+                                             page_table, **scales)
             if verify:
-                metrics.inc("attention/flash_decode_paged_verify")
+                metrics.inc("attention/flash_decode_paged_verify" + int8)
                 return fa.flash_decode_paged_verify(q, k, v, query_offset,
-                                                    page_table)
+                                                    page_table, **scales)
             # chunked prefill (page-sized windows) and other paged
             # shapes: the JAX package's gather + dense route
             metrics.inc("attention/fallback/kv_cache_layout")
-            metrics.inc("attention/dense")
-            return dense_attention(q, fa.gather_kv_pages(k, page_table),
-                                   fa.gather_kv_pages(v, page_table),
-                                   bias, causal, query_offset,
-                                   kv_cache_layout=True)
+            return _dense_over_cache(q, k, v, bias, causal, query_offset,
+                                     True, page_table, k_scale, v_scale)
         if verify:
-            metrics.inc("attention/flash_decode_ragged_verify")
-            return fa.flash_decode_verify(q, k, v, query_offset)
+            metrics.inc("attention/flash_decode_ragged_verify" + int8)
+            return fa.flash_decode_verify(q, k, v, query_offset, **scales)
         if not causal or window != 1:
             raise NotImplementedError(
                 "the port's decode kernels take one causal query token, "
@@ -187,10 +223,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise NotImplementedError(
                     "ragged decode carries no bias: per-slot validity "
                     "lives in the offsets")
-            metrics.inc("attention/flash_decode_ragged")
-            return fa.flash_decode_ragged(q, k, v, query_offset)
-        metrics.inc("attention/flash_decode")
-        return fa.flash_decode(q, k, v, int(query_offset), bias)
+            metrics.inc("attention/flash_decode_ragged" + int8)
+            return fa.flash_decode_ragged(q, k, v, query_offset, **scales)
+        metrics.inc("attention/flash_decode" + int8)
+        return fa.flash_decode(q, k, v, int(query_offset), bias, **scales)
     if ragged or int(query_offset) != 0:
         raise NotImplementedError(
             "the flash forward kernel attends from query offset 0; "

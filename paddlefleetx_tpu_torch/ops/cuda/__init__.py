@@ -1,2 +1,3 @@
 """CUDA kernels of the port: ``build`` compiles ``csrc/*.cu`` at first
-use; ``flash_attention`` holds the wrappers and their plain versions."""
+use; ``flash_attention`` holds the attention wrappers and their plain
+versions, ``quantized_matmul`` the weight-only int8 matmul's."""

@@ -45,14 +45,17 @@ _DROP = [_I, _U, _F, _ULL]
 SIGNATURES = {
     "pfx_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
-    "pfx_flash_decode": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F,
-                         _I, _P],
-    "pfx_flash_decode_verify": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _F, _I, _P],
-    "pfx_flash_decode_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _F, _I, _P],
-    "pfx_flash_decode_paged_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _F, _I, _P],
+    # the decode kernels take q, k, v, then the int8 cache's K and V
+    # scales (null for a cache of q's type)
+    "pfx_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                         _I, _F, _I, _P],
+    "pfx_flash_decode_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _F, _I, _P],
+    "pfx_flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _F, _I, _P],
+    "pfx_flash_decode_paged_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _F, _I, _P],
+    "pfx_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pfx_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
     "pfx_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

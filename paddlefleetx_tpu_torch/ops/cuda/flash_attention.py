@@ -31,6 +31,12 @@
   query ``j`` equals kernel 2 at offset ``offset + j`` and the paged
   kernels equal the contiguous ones on the gathered cache, bit for
   bit.
+- Each decode entry point also reads an int8 cache
+  (``kv_cache_dtype: int8``, the ``quantized=True`` branch of the TPU
+  kernels): given ``k_scale`` / ``v_scale`` (one fp32 scale per (row,
+  head, position): ``[b, h, S]``, or ``[P, h, page]`` for a pool), the
+  int8 instance of the same body dequantizes each element in-kernel,
+  and the plain versions dequantize in fp32 before the same math.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream and raises
@@ -47,8 +53,10 @@ a plain integer: ``flash_attention.launches`` (kernel 1),
 ``flash_decode.launches`` (kernel 2, both one-query entry points),
 ``flash_decode_verify.launches`` (kernel 5),
 ``flash_decode_paged.launches`` (kernel 6a) and
-``flash_decode_paged_verify.launches`` (kernel 6b), so a run can show
-that its main path went through the kernels.
+``flash_decode_paged_verify.launches`` (kernel 6b), the int8 instances
+of the last four apart in ``.launches_int8`` of the same wrappers, so a
+run can show that its main path went through the kernels and which
+instance ran.
 
 The gradient of :func:`flash_attention` is wired through
 ``torch.library.custom_op`` (``pfx::flash_attention``), so activation
@@ -210,10 +218,12 @@ def _check_qkv(q, k, v) -> None:
                          f"[b, s, h, d] with matching b, h, d")
 
 
-def _check_kernel_inputs(name, q, k, v) -> None:
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+def _check_kernel_inputs(name, q, k, v, quantized: bool = False) -> None:
+    cache = torch.int8 if quantized else q.dtype
+    if q.dtype not in _DTYPES or k.dtype != cache or v.dtype != cache:
         raise ValueError(f"{name}: dtype {q.dtype}/{k.dtype}/{v.dtype}; "
-                         f"the kernel takes bf16 or fp32")
+                         f"the kernel takes bf16 or fp32 (and an int8 "
+                         f"cache with scales)")
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {q.shape[-1]} not in "
                          f"{_HEAD_DIMS}")
@@ -436,9 +446,21 @@ flash_attention_backward.launches_dq = 0
 MAX_VERIFY_WINDOW = 32
 
 
+def dequantize_cache(t: torch.Tensor, scale: Optional[torch.Tensor]
+                     ) -> torch.Tensor:
+    """A cache, pool or fresh ``[.., d]`` K / V in fp32: ``t.float()``,
+    times ``scale`` (``t`` minus its d axis) for an int8 one; each
+    element one rounded product, as the int8 kernels widen it."""
+    if scale is None:
+        return t.float()
+    return t.float() * scale.float()[..., None]
+
+
 def flash_decode_reference(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, offsets,
-                           bias: Optional[torch.Tensor] = None
+                           bias: Optional[torch.Tensor] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Plain PyTorch version of every decode kernel on a contiguous
     cache (:func:`flash_decode`, :func:`flash_decode_ragged`,
@@ -454,17 +476,21 @@ def flash_decode_reference(q: torch.Tensor, k: torch.Tensor,
             row or a ``[b]`` integer tensor.
         bias (torch.Tensor): per-key additive bias ``[b, 1, 1, S]`` or
             ``[b, S]``, added before the mask.
+        k_scale, v_scale (torch.Tensor): an int8 cache's ``[b, h, S]``
+            fp32 scales (both or neither); the cache is dequantized in
+            fp32 first.
 
     Returns:
         ``[b, W, h, d]`` in q's dtype.
     """
     b, w, h, d = q.shape
+    k, v = dequantize_cache(k, k_scale), dequantize_cache(v, v_scale)
     if w > 1:
         return torch.cat([flash_decode_reference(
             q[:, j:j + 1].contiguous(), k, v, offsets + j, bias)
             for j in range(w)], dim=1)
     S = k.shape[2]
-    s = torch.einsum("bhd,bhsd->bhs", q.float()[:, 0], k.float()) * d ** -0.5
+    s = torch.einsum("bhd,bhsd->bhs", q.float()[:, 0], k) * d ** -0.5
     if bias is not None:
         s = s + bias.reshape(b, 1, S).float()
     # a shared int offset stays a host scalar: copying it to the card
@@ -476,7 +502,7 @@ def flash_decode_reference(q: torch.Tensor, k: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
     lsum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhs,bhsd->bhd", p, v.float()) / lsum
+    out = torch.einsum("bhs,bhsd->bhd", p, v) / lsum
     return out[:, None].to(q.dtype)
 
 
@@ -485,22 +511,31 @@ def gather_kv_pages(pool: torch.Tensor,
     """A paged pool ``[P, h, page, d]`` read through ``page_table
     [b, max_pages]`` back into the contiguous ``[b, h, max_pages * page,
     d]`` cache, each row's logical positions in order (the port of the
-    JAX package's ``ops/attention.py::_gather_kv_pages``). It
+    JAX package's ``ops/attention.py::_gather_kv_pages``); a scale pool
+    ``[P, h, page]`` likewise into ``[b, h, max_pages * page]``. It
     materializes every row at full capacity: the plain versions' and
     the dense path's read, never a kernel's."""
-    g = pool[page_table.long()]                 # [b, m, h, page, d]
-    b, m, h, page, d = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(b, h, m * page, d)
+    g = pool[page_table.long()].transpose(1, 2)   # [b, h, m, page, (d)]
+    b, h, m, page = g.shape[:4]
+    return g.reshape(b, h, m * page, *pool.shape[3:])
 
 
 def flash_decode_paged_reference(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, offsets: torch.Tensor,
-                                 page_table: torch.Tensor) -> torch.Tensor:
+                                 page_table: torch.Tensor,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`flash_decode_paged` and
-    :func:`flash_decode_paged_verify`: gather each row's pages
-    (:func:`gather_kv_pages`), then :func:`flash_decode_reference`."""
+    :func:`flash_decode_paged_verify`: gather each row's pages (and an
+    int8 pool's scale pages, :func:`gather_kv_pages`), then
+    :func:`flash_decode_reference`."""
+    if k_scale is not None:
+        k_scale = gather_kv_pages(k_scale, page_table)
+        v_scale = gather_kv_pages(v_scale, page_table)
     return flash_decode_reference(q, gather_kv_pages(k, page_table),
-                                  gather_kv_pages(v, page_table), offsets)
+                                  gather_kv_pages(v, page_table), offsets,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def _check_decode(q, k, v, windows=range(1, 2)) -> None:
@@ -523,6 +558,42 @@ def _check_paged(q, k, v, page_table, windows=range(1, 2)) -> None:
                          f"table {tuple(page_table.shape)} [b, max_pages]")
 
 
+def _check_kv_scales(name, k, v, k_scale, v_scale) -> bool:
+    """Whether the cache is int8 (the port of the JAX kernels'
+    ``_check_kv_scales``): scales come both or neither, with scales
+    the cache must be int8, and each scale is the cache minus its d
+    axis (``[b, h, S]`` or ``[P, h, page]``) in fp32."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: int8 KV wants both k_scale and v_scale "
+                         f"(or neither)")
+    if k_scale is None:
+        return False
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise ValueError(f"{name}: KV scales given but the cache is "
+                         f"{k.dtype}/{v.dtype}, not int8")
+    want = tuple(k.shape[:3])
+    for s in (k_scale, v_scale):
+        if tuple(s.shape) != want or s.dtype != torch.float32:
+            raise ValueError(f"{name}: KV scales must be fp32 {want}, got "
+                             f"{s.dtype} {tuple(s.shape)}")
+    return True
+
+
+def _scale_ptrs(k_scale, v_scale):
+    """The scale pointers a decode entry point takes (None: no int8)."""
+    if k_scale is None:
+        return None, None
+    return k_scale.data_ptr(), v_scale.data_ptr()
+
+
+def _count(wrapper, quantized: bool) -> None:
+    """Count one launch of a decode kernel's bf16/fp32 or int8 instance."""
+    if quantized:
+        wrapper.launches_int8 += 1
+    else:
+        wrapper.launches += 1
+
+
 def _check_offsets(name, offsets, b) -> None:
     if offsets.dtype != torch.int32 or offsets.shape != (b,):
         raise ValueError(f"{name}: offsets must be int32 [{b}], got "
@@ -536,12 +607,12 @@ def _launch_rc(name: str, rc: int) -> None:
 
 
 def _launch_decode(q, k, v, offsets: Optional[torch.Tensor],
-                   shared_offset: int, bias: Optional[torch.Tensor]
-                   ) -> torch.Tensor:
+                   shared_offset: int, bias: Optional[torch.Tensor],
+                   k_scale, v_scale, quantized: bool) -> torch.Tensor:
     """Launch kernel 2 (either entry point) and count the launch."""
     b, _, h, d = q.shape
     S = k.shape[2]
-    _check_kernel_inputs("flash_decode", q, k, v)
+    _check_kernel_inputs("flash_decode", q, k, v, quantized)
     if offsets is not None:
         _check_offsets("flash_decode_ragged", offsets, b)
     if bias is not None:
@@ -549,121 +620,155 @@ def _launch_decode(q, k, v, offsets: Optional[torch.Tensor],
             raise ValueError(f"flash_decode: bias {tuple(bias.shape)} is "
                              f"not a per-key [b, S] = [{b}, {S}] bias")
         bias = bias.reshape(b, S).to(torch.float32).contiguous()
-    _check_cuda("flash_decode", q, k, v, offsets, bias)
+    _check_cuda("flash_decode", q, k, v, offsets, bias, k_scale, v_scale)
     out = torch.empty_like(q)
     lib = build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.pfx_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *_scale_ptrs(k_scale, v_scale),
             offsets.data_ptr() if offsets is not None else None,
             int(shared_offset),
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), b, h, S, d, d ** -0.5,
             int(q.dtype == torch.bfloat16), stream)
     _launch_rc("flash_decode", rc)
-    flash_decode.launches += 1
+    _count(flash_decode, quantized)
     return out
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 offset: int, bias: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 offset: int, bias: Optional[torch.Tensor] = None,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step with one shared cache index (kernel 2, the
     lockstep ``generate()`` path): every row of ``q [b, 1, h, d]``
     attends to cache positions ``<= offset`` of ``k/v [b, h, S, d]``,
-    with an optional per-key bias ``[b, 1, 1, S]`` (the left-pad mask).
+    with an optional per-key bias ``[b, 1, 1, S]`` (the left-pad mask);
+    with ``k_scale`` / ``v_scale`` (``[b, h, S]`` fp32) the cache is
+    int8 and the int8 instance runs (``flash_decode.launches_int8``).
 
     ``offset`` is a host int, passed to the kernel as an argument. On
     CPU tensors the plain version runs; on CUDA tensors the kernel
     launches or this raises.
     """
     _check_decode(q, k, v)
+    quantized = _check_kv_scales("flash_decode", k, v, k_scale, v_scale)
     offset = int(offset)
-    if _on_cpu(q, k, v, bias):
-        return flash_decode_reference(q, k, v, offset, bias)
-    return _launch_decode(q, k, v, None, offset, bias)
+    if _on_cpu(q, k, v, bias, k_scale, v_scale):
+        return flash_decode_reference(q, k, v, offset, bias, k_scale,
+                                      v_scale)
+    return _launch_decode(q, k, v, None, offset, bias, k_scale, v_scale,
+                          quantized)
 
 
 flash_decode.launches = 0
+flash_decode.launches_int8 = 0
 
 
 def flash_decode_ragged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        offsets: torch.Tensor) -> torch.Tensor:
+                        offsets: torch.Tensor,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Decode with per-row offsets over the contiguous cache, the
     serving tick: row ``i`` of ``q [b, 1, h, d]`` attends to positions
     ``<= offsets[i]`` of its own cache row and walks no further, so a
     short slot never pays for a long one. ``offsets`` is a ``[b]`` int32
-    tensor on q's device. Launches kernel 2 (counted in
-    ``flash_decode.launches``); the window is :func:`flash_decode_verify`.
+    tensor on q's device; ``k_scale`` / ``v_scale`` as in
+    :func:`flash_decode`. Launches kernel 2 (counted in
+    ``flash_decode.launches`` or ``.launches_int8``); the window is
+    :func:`flash_decode_verify`.
     """
     _check_decode(q, k, v)
-    if _on_cpu(q, k, v, offsets):
-        return flash_decode_reference(q, k, v, offsets)
-    return _launch_decode(q, k, v, offsets, 0, None)
+    quantized = _check_kv_scales("flash_decode_ragged", k, v, k_scale,
+                                 v_scale)
+    if _on_cpu(q, k, v, offsets, k_scale, v_scale):
+        return flash_decode_reference(q, k, v, offsets, None, k_scale,
+                                      v_scale)
+    return _launch_decode(q, k, v, offsets, 0, None, k_scale, v_scale,
+                          quantized)
 
 
 def flash_decode_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        offsets: torch.Tensor) -> torch.Tensor:
+                        offsets: torch.Tensor,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """The speculative verify window over the contiguous cache (kernel
     5, ``csrc/flash_decode.cu``): query ``j`` of row ``i`` of ``q [b, W,
     h, d]`` (``1 < W <= 32``) sits at position ``offsets[i] + j`` and
-    attends to keys ``<= offsets[i] + j`` of ``k/v [b, h, S, d]``. On the
-    card query ``j`` equals kernel 2 at offset ``offsets[i] + j`` bit for
-    bit. On CPU tensors the plain version runs; on CUDA tensors the
-    kernel launches (``flash_decode_verify.launches``) or this raises.
+    attends to keys ``<= offsets[i] + j`` of ``k/v [b, h, S, d]``
+    (int8 with ``k_scale`` / ``v_scale``, as in :func:`flash_decode`).
+    On the card query ``j`` equals kernel 2 at offset ``offsets[i] + j``
+    bit for bit. On CPU tensors the plain version runs; on CUDA tensors
+    the kernel launches (``flash_decode_verify.launches`` or
+    ``.launches_int8``) or this raises.
     """
     _check_decode(q, k, v, range(2, MAX_VERIFY_WINDOW + 1))
-    if _on_cpu(q, k, v, offsets):
-        return flash_decode_reference(q, k, v, offsets)
+    quantized = _check_kv_scales("flash_decode_verify", k, v, k_scale,
+                                 v_scale)
+    if _on_cpu(q, k, v, offsets, k_scale, v_scale):
+        return flash_decode_reference(q, k, v, offsets, None, k_scale,
+                                      v_scale)
     b, w, h, d = q.shape
     S = k.shape[2]
-    _check_kernel_inputs("flash_decode_verify", q, k, v)
+    _check_kernel_inputs("flash_decode_verify", q, k, v, quantized)
     _check_offsets("flash_decode_verify", offsets, b)
-    _check_cuda("flash_decode_verify", q, k, v, offsets)
+    _check_cuda("flash_decode_verify", q, k, v, offsets, k_scale, v_scale)
     out = torch.empty_like(q)
     lib = build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.pfx_flash_decode_verify(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *_scale_ptrs(k_scale, v_scale), offsets.data_ptr(),
             out.data_ptr(), b, w, h, S, d, d ** -0.5,
             int(q.dtype == torch.bfloat16), stream)
     _launch_rc("flash_decode_verify", rc)
-    flash_decode_verify.launches += 1
+    _count(flash_decode_verify, quantized)
     return out
 
 
 flash_decode_verify.launches = 0
+flash_decode_verify.launches_int8 = 0
 
 
-def _launch_paged(name: str, q, k, v, offsets, page_table, dims
-                  ) -> torch.Tensor:
-    """Launch kernel 6a or 6b through its C entry point ``pfx_<name>``,
-    whose leading sizes are ``dims``."""
+def _launch_paged(wrapper, q, k, v, offsets, page_table, dims, k_scale,
+                  v_scale, quantized: bool) -> torch.Tensor:
+    """Launch kernel 6a or 6b through its C entry point
+    ``pfx_<wrapper name>``, whose leading sizes are ``dims``, and count
+    the launch."""
+    name = wrapper.__name__
     b, _, _, d = q.shape
-    _check_kernel_inputs(name, q, k, v)
+    _check_kernel_inputs(name, q, k, v, quantized)
     _check_offsets(name, offsets, b)
     if page_table.dtype != torch.int32:
         raise ValueError(f"{name}: page_table must be int32, got "
                          f"{page_table.dtype}")
-    _check_cuda(name, q, k, v, offsets, page_table)
+    _check_cuda(name, q, k, v, offsets, page_table, k_scale, v_scale)
     out = torch.empty_like(q)
     lib = build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, "pfx_" + name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *_scale_ptrs(k_scale, v_scale), offsets.data_ptr(),
             page_table.data_ptr(), out.data_ptr(), *dims, k.shape[2],
             page_table.shape[1], d, d ** -0.5,
             int(q.dtype == torch.bfloat16), stream)
     _launch_rc(name, rc)
+    _count(wrapper, quantized)
     return out
 
 
 def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        offsets: torch.Tensor,
-                       page_table: torch.Tensor) -> torch.Tensor:
+                       page_table: torch.Tensor,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Decode through a paged KV pool (kernel 6a; the window is
     :func:`flash_decode_paged_verify`): row ``i`` of ``q [b, 1, h, d]``
     attends to positions ``<= offsets[i]`` of its logical cache, whose
@@ -671,38 +776,51 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``page_table[i, j]`` of the pool ``k/v [P, h, page, d]`` (the port's
     page layout; the JAX pool is ``[P, h, d, page]``). ``offsets`` is a
     ``[b]`` int32 tensor and ``page_table`` a ``[b, max_pages]`` int32
-    tensor, both on q's device. On the card the result equals kernel 2
-    on the gathered cache bit for bit. On CPU tensors the plain version
-    (:func:`flash_decode_paged_reference`) runs; on CUDA tensors the
-    kernel launches (``flash_decode_paged.launches``) or this raises.
+    tensor, both on q's device; an int8 pool comes with its ``[P, h,
+    page]`` fp32 scale pools ``k_scale`` / ``v_scale``. On the card the
+    result equals kernel 2 on the gathered cache bit for bit. On CPU
+    tensors the plain version (:func:`flash_decode_paged_reference`)
+    runs; on CUDA tensors the kernel launches
+    (``flash_decode_paged.launches`` or ``.launches_int8``) or this
+    raises.
     """
     _check_paged(q, k, v, page_table)
-    if _on_cpu(q, k, v, offsets, page_table):
-        return flash_decode_paged_reference(q, k, v, offsets, page_table)
-    out = _launch_paged("flash_decode_paged", q, k, v, offsets, page_table,
-                        (q.shape[0], q.shape[2]))
-    flash_decode_paged.launches += 1
-    return out
+    quantized = _check_kv_scales("flash_decode_paged", k, v, k_scale,
+                                 v_scale)
+    if _on_cpu(q, k, v, offsets, page_table, k_scale, v_scale):
+        return flash_decode_paged_reference(q, k, v, offsets, page_table,
+                                            k_scale, v_scale)
+    return _launch_paged(flash_decode_paged, q, k, v, offsets, page_table,
+                         (q.shape[0], q.shape[2]), k_scale, v_scale,
+                         quantized)
 
 
 flash_decode_paged.launches = 0
+flash_decode_paged.launches_int8 = 0
 
 
 def flash_decode_paged_verify(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, offsets: torch.Tensor,
-                              page_table: torch.Tensor) -> torch.Tensor:
+                              page_table: torch.Tensor,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The speculative verify window through a paged pool (kernel 6b):
     :func:`flash_decode_verify`'s within-window causal mask over
-    :func:`flash_decode_paged`'s addressing, ``1 < W <= 32``. On the
-    card it equals kernel 5 on the gathered cache bit for bit. Launches
-    count in ``flash_decode_paged_verify.launches``."""
+    :func:`flash_decode_paged`'s addressing (int8 pools as there),
+    ``1 < W <= 32``. On the card it equals kernel 5 on the gathered
+    cache bit for bit. Launches count in
+    ``flash_decode_paged_verify.launches`` or ``.launches_int8``."""
     _check_paged(q, k, v, page_table, range(2, MAX_VERIFY_WINDOW + 1))
-    if _on_cpu(q, k, v, offsets, page_table):
-        return flash_decode_paged_reference(q, k, v, offsets, page_table)
-    out = _launch_paged("flash_decode_paged_verify", q, k, v, offsets,
-                        page_table, q.shape[:3])
-    flash_decode_paged_verify.launches += 1
-    return out
+    quantized = _check_kv_scales("flash_decode_paged_verify", k, v,
+                                 k_scale, v_scale)
+    if _on_cpu(q, k, v, offsets, page_table, k_scale, v_scale):
+        return flash_decode_paged_reference(q, k, v, offsets, page_table,
+                                            k_scale, v_scale)
+    return _launch_paged(flash_decode_paged_verify, q, k, v, offsets,
+                         page_table, q.shape[:3], k_scale, v_scale,
+                         quantized)
 
 
 flash_decode_paged_verify.launches = 0
+flash_decode_paged_verify.launches_int8 = 0

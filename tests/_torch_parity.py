@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from paddlefleetx_tpu.core.quantize import quantize_param_tree
 from paddlefleetx_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddlefleetx_tpu.models.gpt import GPTForPretraining as JaxGPT
 from paddlefleetx_tpu.observability import metrics as jax_metrics
@@ -65,6 +66,24 @@ def build_pair(seed: int = 0, **over):
     model = build_model(cfg, CPU, state_dict=torch_state_dict_from_flax(
         numpy_tree(params), cfg))
     return jmodel, params, model
+
+
+def build_quant_pair(seed: int = 0, **over):
+    """``(jax_model, jax_qparams, port_model)`` under ``quant_execution:
+    weight_only_int8``: the JAX package's initializer draws the fp
+    weights, its ``quantize_param_tree`` quantizes them, and the port
+    loads the quantized tree through the converter (``over`` may set
+    ``kv_cache_dtype`` too)."""
+    kw = tiny_kwargs(**over)
+    fp_kw = dict(kw, quant_execution="off", kv_cache_dtype="bf16")
+    params = jax_params(JaxGPT(JaxGPTConfig(**fp_kw)), seed)
+    qparams, _ = quantize_param_tree(params)
+    kw["quant_execution"] = "weight_only_int8"
+    jmodel = JaxGPT(JaxGPTConfig(**kw))
+    cfg = GPTConfig(**kw)
+    model = build_model(cfg, CPU, state_dict=torch_state_dict_from_flax(
+        numpy_tree(qparams), cfg))
+    return jmodel, qparams, model
 
 
 @contextmanager

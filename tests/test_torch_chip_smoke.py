@@ -21,6 +21,7 @@ import chip_smoke  # noqa: E402
 from _torch_parity import one_thread  # noqa: E402
 from paddlefleetx_tpu_torch.observability import metrics  # noqa: E402
 from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm  # noqa: E402
 
 TINY = ["Model.num_layers=2", "Model.hidden_size=128",
         "Model.num_attention_heads=2", "Model.ffn_hidden_size=256",
@@ -31,11 +32,17 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 
 def _counting(fn):
+    """A decode wrapper that counts its runs as the kernel counts its
+    launches: the int8 instance (KV scales given) apart."""
     @functools.wraps(fn)
     def shim(*args, **kwargs):
-        shim.launches += 1
+        if kwargs.get("k_scale") is not None:
+            shim.launches_int8 += 1
+        else:
+            shim.launches += 1
         return fn(*args, **kwargs)
     shim.launches = 0
+    shim.launches_int8 = 0
     return shim
 
 
@@ -63,13 +70,22 @@ def shims(monkeypatch):
 
     def ragged_shim(*args, **kwargs):
         # kernel 2's second entry point counts in flash_decode.launches
-        decode.launches += 1
+        if kwargs.get("k_scale") is not None:
+            decode.launches_int8 += 1
+        else:
+            decode.launches += 1
         return ragged(*args, **kwargs)
     monkeypatch.setattr(fa, "flash_decode", decode)
     monkeypatch.setattr(fa, "flash_decode_ragged", ragged_shim)
     for name in ("flash_decode_paged", "flash_decode_verify",
                  "flash_decode_paged_verify"):
         monkeypatch.setattr(fa, name, _counting(getattr(fa, name)))
+    qmm_plain = qmm.quantized_matmul_reference
+
+    def qmm_shim(*args, **kwargs):
+        qmm.quantized_matmul.launches += 1
+        return qmm_plain(*args, **kwargs)
+    monkeypatch.setattr(qmm, "quantized_matmul_reference", qmm_shim)
     yield
     metrics.get_registry().reset()
     metrics.set_enabled(False)
@@ -421,3 +437,151 @@ def test_decode_window_bound():
     flops = 4.0 * 16 * 64 * 16 * sum(min(1000 + j + 1, 1024)
                                      for j in range(32))
     assert ms >= flops / chip_smoke.FP32_CUDA_CORE_FLOPS * 1e3 * 0.999
+
+
+def test_int8_serving_phases_run_at_tiny_size(shims, capsys, monkeypatch):
+    """The int8 serving phases at a tiny size: the headline trace with
+    both int8 knobs from the int8 pool of the bf16 pool's bytes and the
+    short arms, each tick an int8 instance once a layer, kernel 7 at
+    every dense site of every forward; the ``serve`` entry point with
+    both knobs; the kernels line's int8 rows."""
+    monkeypatch.setattr(chip_smoke, "HEADLINE", TINY_HEADLINE)
+    paged, _ = chip_smoke.phase_serve_paged("cpu", TINY)
+    runs, module = chip_smoke.phase_serve_int8(
+        paged, "cpu", TINY, short={"requests": 3, "max_dec_len": 6})
+    assert module.model_config.kv_cache_dtype == "int8"
+    kernels = {"paged": "flash_decode_paged_int8",
+               "contiguous": "flash_decode_int8",
+               "contiguous_spec": "flash_decode_verify_int8",
+               "paged_spec": "flash_decode_paged_verify_int8"}
+    for arm, kernel in kernels.items():
+        run = runs[arm]
+        assert run["kernel"] == kernel
+        assert run["launches"][kernel] == run["decode_ticks"] * 2 > 0
+        assert run["launches"]["quantized_matmul"] == \
+            run["counters"]["quant/matmul"] == 4 * 2 * run["forwards"]
+    # the bf16 pool's bytes hold 9 int8 pages for 5 bf16 ones at the tiny
+    # width (head_dim 64: 68 bytes a key and head against 128)
+    assert runs["paged"]["pool_pages"] == 9
+    chip_smoke.phase_serve_cli("cpu", TINY_1024, int8=True)
+    lines = {}
+    for d in _lines(capsys):
+        lines.setdefault(d.get("phase"), []).append(d)
+    ab = lines["serve_int8_ab"][0]
+    assert ab["slots_admitted"] == 4 and ab["slots_admitted_bf16"] == 2
+    assert len(lines["serve_int8"]) == 4 and "serve_cli_int8" in lines
+    qcase = {"dtype": "bfloat16", "site": "qkv", "M": 16, "K": 1024,
+             "N": 3072, "max_abs_err": 4e-3, "tol": 2e-2, "rel_l2": 2e-3,
+             "rel_l2_planted": 1.0, "ms": 0.02, "call_ms": 0.03,
+             "plain_ms": 0.1, "library_ms": 0.01, "int8pack_ms": None,
+             "library_computes": "F.linear", "bound_ms": 0.001,
+             "bound_by": "bytes"}
+    dcase = {"dtype": "bfloat16", "b": 8, "h": 16, "S": 1024, "d": 64,
+             "offsets": [0, 5], "shared_offset_bias": False,
+             "max_abs_err": 4e-3, "tol": 2e-2, "rel_l2": 2e-3,
+             "rel_l2_planted": 1.0, "ms": 0.02, "call_ms": 0.03,
+             "plain_ms": 0.1, "library_ms": 0.02, "bound_ms": 0.002,
+             "bound_by": "bytes", "library_computes": "SDPA"}
+    window8 = {p + "_int8": [_window_case(p, w)] for p, w in (
+        ("kernel_paged", 1), ("kernel_verify", 5),
+        ("kernel_paged_verify", 5))}
+    rows = {r["name"]: r for r in chip_smoke.int8_rows(
+        [dcase], window8, [qcase], runs)}
+    assert list(rows) == ["quantized_matmul", "flash_decode_int8",
+                          "flash_decode_paged_int8", "flash_decode_verify_int8",
+                          "flash_decode_paged_verify_int8"]
+    for row in rows.values():
+        assert KERNEL_KEYS <= set(row)
+    assert rows["quantized_matmul"]["replaces"].endswith(
+        "quantized_matmul.py:44")
+    assert rows["quantized_matmul"]["launches"] == sum(
+        r["launches"]["quantized_matmul"] for r in runs.values())
+    for arm, kernel in kernels.items():
+        assert rows[kernel]["launches"] == runs[arm]["launches"][kernel]
+    assert rows["flash_decode_paged_int8"]["int8_branch"].endswith(
+        ":1536-1548")
+
+
+def test_parity_int8_phase_runs_at_tiny_size(shims, capsys):
+    """The int8 servers' greedy rows equal the int8 lockstep rows in
+    fp32, also with a pool small enough that the repeated prompt shares
+    a partial page and splits it copy-on-write and a request is
+    preempted; the bf16 pass prints its equal-row share."""
+    with one_thread():
+        fp32, bf16 = chip_smoke.phase_parity_int8("cpu", TINY_1024,
+                                                  max_dec_len=24)
+    assert fp32["dtype"] == "float32" and bf16["dtype"] == "bfloat16"
+    assert set(fp32["rows_equal"].values()) == {4}
+    small = fp32["counts"]["paged_small_pool"]
+    assert small["cow_splits"] >= 1 and small["preempted"] >= 1
+    assert fp32["lockstep_launches"]["flash_decode_int8"] == 23 * 2
+    assert fp32["lockstep_launches"]["quantized_matmul"] == 4 * 2 * 24
+    assert "rows_equal_share" in bf16
+    assert [d["phase"] for d in _lines(capsys)].count("parity_int8") == 2
+
+
+def test_int8_kernel_checks_hold_what_they_say(monkeypatch):
+    """The int8 kernel phases' checks on the CPU (the wrappers run their
+    plain versions): kernel 7's case passes and refuses a kernel that
+    skips one output tile; kernel 2's int8 case passes; the int8 verify
+    and paged cases are exact against kernel 2 / 5's int8 instance, and
+    an int8 verify kernel that reads one key's scale wrong fails."""
+    import torch
+    case = chip_smoke.qmm_case(qmm, torch, torch.bfloat16, "t", 80, 256,
+                               384, 3, device="cpu")
+    assert case["max_abs_err"] <= case["tol"] and case["ms"] is None
+    assert case["rel_l2_planted"] == 1.0
+    real = qmm.quantized_matmul
+
+    def skips_a_tile(x, w, scale):
+        out = real(x, w, scale).clone()
+        out[:, 128:192] = 0
+        return out
+    monkeypatch.setattr(qmm, "quantized_matmul", skips_a_tile)
+    with pytest.raises(AssertionError, match="disagrees|normwise"):
+        chip_smoke.qmm_case(qmm, torch, torch.bfloat16, "t", 80, 256, 384,
+                            3, device="cpu")
+    monkeypatch.undo()
+    for shared_bias in (False, True):
+        case = chip_smoke.decode_case(fa, torch, torch.float32, [0, 5, 300],
+                                      2, 512, 64, shared_bias, 4, n_sets=1,
+                                      int8=True, device="cpu")
+        assert case["kv_cache"] == "int8"
+    for kind, window in (("verify", 5), ("paged", 1), ("paged_verify", 2)):
+        case = chip_smoke.decode_window_case(fa, torch, kind, torch.float32,
+                                             window, 3, n_sets=1,
+                                             device="cpu", int8=True)
+        assert case["exact_max_abs_err"] == 0.0
+        assert case["kv_cache"] == "int8"
+    verify = fa.flash_decode_verify
+
+    def one_scale_off(q, k, v, offsets, k_scale, v_scale):
+        v_scale = v_scale.clone()
+        v_scale[0, 0, 3] *= 1.5
+        return verify(q, k, v, offsets, k_scale=k_scale, v_scale=v_scale)
+    monkeypatch.setattr(fa, "flash_decode_verify", one_scale_off)
+    with pytest.raises(AssertionError, match="plain version"):
+        chip_smoke.decode_window_case(fa, torch, "verify", torch.float32,
+                                      5, 3, n_sets=1, device="cpu",
+                                      int8=True)
+
+
+def test_int8_bounds():
+    # kernel 7, bf16, M 16 at the qkv site: x, int8 w, fp32 scales, out
+    ms, by = chip_smoke._qmm_bound(16, 1024, 3072, 2)
+    nbytes = 16 * 1024 * 2 + 1024 * 3072 + 4 * 3072 + 16 * 3072 * 2
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    ms, by = chip_smoke._qmm_bound(512, 4096, 1024, 4)
+    assert by == "operations"
+    assert ms == pytest.approx(2.0 * 512 * 4096 * 1024 /
+                               chip_smoke.FP32_CUDA_CORE_FLOPS * 1e3)
+    # the int8 cache: 2 (d + 4) bytes a live key and head
+    ms, by = chip_smoke._decode_bound([0, 3], 2, 16, 64, 2, False,
+                                      2 * (64 + 4))
+    nbytes = 2 * (64 + 4) * 2 * 5 + 2 * 2 * 2 * 64 * 2
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    ms, _ = chip_smoke._paged_bound([0, 3], 2, 2, 64, 16, 2, 0,
+                                    2 * (64 + 4))
+    nbytes = 2 * (64 + 4) * 2 * 7 + 2 * 2 * 2 * 2 * 64 * 2 + 4 * 2
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)

@@ -57,26 +57,53 @@ def test_fp32_override_gives_fp32_compute():
     assert cfg.dtype == "float32"
 
 
+#: the int8 knobs (ported) beside a knob that is not: only the latter
+#: is named
 @pytest.mark.parametrize("knob", [
-    {"kv_page_size": 128, "kv_pool_pages": 9, "kv_cache_dtype": "int8"},
-    {"kv_cache_dtype": "int8"},
-    {"quant_execution": "weight_only_int8"},
+    {"kv_page_size": 128, "kv_pool_pages": 9, "kv_cache_dtype": "int8",
+     "moe_num_experts": 4},
+    {"kv_cache_dtype": "int8", "context_parallel": True},
+    {"quant_execution": "weight_only_int8", "fuse_attn_qkv": False},
     {"lora_rank": 4, "lora_num_adapters": 2},
     {"moe_num_experts": 4},
     {"context_parallel": True},
     {"fuse_attn_qkv": False},
 ])
 def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported") as err:
         GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
                   num_attention_heads=2, max_position_embeddings=128,
                   **knob)
+    assert "kv_cache_dtype" not in str(err.value)
+    assert "quant_execution" not in str(err.value)
+
+
+@pytest.mark.parametrize("knob", [
+    {"kv_page_size": 128, "kv_pool_pages": 9, "kv_cache_dtype": "int8"},
+    {"kv_cache_dtype": "int8"},
+    {"quant_execution": "weight_only_int8"},
+])
+def test_int8_knobs_validate_like_jax(knob):
+    """The int8 knobs build as in the JAX package, field for field, and
+    reach the config from the YAML through ``-o`` overrides."""
+    kw = {"vocab_size": 64, "hidden_size": 32, "num_layers": 1,
+          "num_attention_heads": 2, "max_position_embeddings": 1024,
+          **knob}
+    assert dataclasses.asdict(GPTConfig(**kw)) == \
+        dataclasses.asdict(JaxGPTConfig(**kw))
+    over = [f"Model.{k}={v}" for k, v in knob.items()]
+    ours = GPTConfig.from_config(get_config(GEN, over))
+    theirs = JaxGPTConfig.from_config(jax_get_config(GEN, over, nranks=1))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    for k, v in knob.items():
+        assert getattr(ours, k) == v
 
 
 @pytest.mark.parametrize("bad", [
     {"recompute_granularity": "nope"},
     {"pipeline_schedule": "nope"},
     {"kv_cache_dtype": "fp8"},
+    {"quant_execution": "int4"},
     {"num_attention_heads": 5},
 ])
 def test_invalid_values_raise_like_jax(bad):
