@@ -49,6 +49,16 @@ speculative and paged speculative arms, each checked from its counts
 of the int8 paged ticks; the ``serve`` entry point with both knobs;
 and fp32 greedy rows of the int8 servers equal to the int8 lockstep
 ``generate()``, with a copy-on-write split and a preemption in the run.
+Then MoE training: kernels 8 and 9 (the grouped GEMM: forward, dx over
+the transposed weight, dw) against their plain versions at the 8x345M
+MoE recipe's six expert-GEMM shapes, bf16 and fp32, with planted empty
+groups exactly zero, timed beside ``torch.bmm`` and
+``torch._grouped_mm``; the recipe at full width on one card (its
+parallel degrees set to 1) for 16 steps through ``cli.train_main``,
+with kernel 8 held to 768 and kernel 9 to 384 launches a step; one
+profiled MoE step; and ``sort_pallas`` held to ``sort`` (``torch.bmm``)
+at 2 layers in fp32 and bf16, refused with one expert's dw planted
+wrong.
 Each phase prints one JSON object per line;
 the ``kernels`` line and the card's name and power limit come before
 the last line, which is ``{"ok": true, "device": {...}}``. Any failure
@@ -72,6 +82,8 @@ CONFIG = os.path.join(ROOT, "configs", "nlp", "gpt",
                       "generation_gpt_345M_single_card.yaml")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "nlp", "gpt",
                             "pretrain_gpt_345M_single_card.yaml")
+MOE_CONFIG = os.path.join(ROOT, "configs", "nlp", "gpt",
+                          "pretrain_moe_gpt_8x345M_ep8.yaml")
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
 #: H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
@@ -901,6 +913,201 @@ def phase_kernel_qmm(device="cuda", rows=QMM_ROWS, sites=QMM_SITES):
     return cases
 
 
+# -- kernels 8 and 9: the grouped GEMM ---------------------------------
+
+#: the 8x345M MoE recipe's expert GEMMs at micro batch 2 x 1024 tokens:
+#: G = E x b = 16 (expert, row) groups, rep = b = 2, C = ceil(2 x 1024 x
+#: 1.25 / 8) = 320 slots, h = 1024, m = 4096; ``(name, K, N)`` of each
+#: call's x [G, C, K] @ [K, N] (dx: the forward's w read transposed; dw:
+#: x^T dy into the fp32 [Gw, K, N])
+GMM_GROUPS = {"G": 16, "Gw": 8, "C": 320}
+GMM_CALLS = (("fc1", 1024, 4096), ("fc2", 4096, 1024),
+             ("fc1_dx", 4096, 1024), ("fc2_dx", 1024, 4096),
+             ("fc1_dw", 1024, 4096), ("fc2_dw", 4096, 1024))
+#: groups planted empty: group 5 (expert 2 keeps its other row) and both
+#: of expert 3's (6, 7), whose dw must then be all zeros
+GMM_EMPTY = (5, 6, 7)
+#: kernels 8 and 9 against their plain versions in fp32 on the same
+#: inputs (outputs of std ~0.5): kernel 7's tolerances
+TOL_GMM = TOL_QMM
+
+
+def _gmm_bound(kind, counts, gw, c, k, n, itemsize):
+    """(bound_ms, bound_by) of one call at this run's counts: FLOPs 2 C
+    K N a live group (all its C rows); bytes: kernel 8 reads x of the
+    live groups and the weights of the experts with one, writes all of
+    out; kernel 9 reads x and dy of the live groups and writes the fp32
+    dw. bf16 on the tensor cores, fp32 on the CUDA cores."""
+    g = len(counts)
+    rep = g // gw
+    live = [x > 0 for x in counts]
+    n_live = sum(live)
+    flops = 2.0 * c * k * n * n_live
+    if kind == "dw":
+        nbytes = n_live * c * (k + n) * itemsize + gw * k * n * 4
+    else:
+        experts = sum(any(live[e * rep:(e + 1) * rep]) for e in range(gw))
+        nbytes = n_live * c * k * itemsize + experts * k * n * itemsize \
+            + g * c * n * itemsize
+    nbytes += 4 * g
+    peak = BF16_TENSOR_FLOPS if itemsize == 2 else FP32_CUDA_CORE_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _gmm_counts(torch, g, c, empty, gen, device):
+    """Seeded live rows per group, uniform in [C / 2, C], the ``empty``
+    groups 0 (the recipe's routing at capacity factor 1.25 fills most
+    slots)."""
+    counts = torch.randint(c // 2, c + 1, (g,), generator=gen,
+                           device=device, dtype=torch.int32)
+    counts[list(empty)] = 0
+    return counts
+
+
+def _grouped_mm_ms(torch, a, b):
+    """``torch._grouped_mm`` of ``a [Gw, M, K]`` and ``b [Gw, K, N]``
+    (PyTorch's grouped GEMM, timed as a yardstick only) and how it was
+    called, or None and why it was not."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "absent in this PyTorch"
+    if a.dtype != torch.bfloat16:
+        return None, "not called: it takes bf16"
+    last = None
+    for label, bb in (("b as stored", b),
+                      ("b column-major", b.transpose(1, 2).contiguous()
+                       .transpose(1, 2))):
+        try:
+            fn(a, bb)
+            return time_ms(lambda i: fn(a, bb), 1)[0], label
+        except (RuntimeError, TypeError, NotImplementedError) as err:
+            last = f"refused: {str(err).splitlines()[0][:120]}"
+    return None, last
+
+
+def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
+             groups=GMM_GROUPS, empty=GMM_EMPTY):
+    """One expert GEMM of the recipe through kernel 8 (forward, or dx
+    over the transposed weight) or kernel 9 (dw) against its plain
+    version (fp32 math on the same inputs), by max abs error and per 64
+    x 64 output tile normwise (planted fault refused), with the planted
+    empty groups (and expert 3's dw) exactly zero, and in the fc2 calls
+    the padding rows non-zero (dy is non-zero on every row); timed with
+    its plain
+    version, ``torch.bmm`` over ``x.view(Gw, rep C, K)`` (the same
+    function when no group is empty) and ``torch._grouped_mm`` where
+    this PyTorch has it. On the CPU the wrappers run their plain
+    versions and nothing is timed."""
+    g, gw, c = groups["G"], groups["Gw"], groups["C"]
+    rep = g // gw
+    kind = call.split("_")[-1] if "_" in call else "fwd"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    counts = _gmm_counts(torch, g, c, empty, gen, device)
+    rows = (torch.arange(c, device=device)[None, :, None] <
+            counts[:, None, None].long())
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) *
+                scale).to(dtype)
+    # x [G, C, K]: the rows past a group's count are zero in the fc1
+    # input (the dispatch's zero slots) and one non-zero row in the fc2
+    # input (its padding rows are gelu(b1)), so there a kernel that
+    # skipped rows of a live group, or read an empty one, disagrees;
+    # outputs of std ~0.5
+    pad = randn(1, 1, k).float() if call.startswith("fc2") else 0.0
+    x = torch.where(rows, randn(g, c, k).float(), pad).to(dtype)
+    if kind == "dw":
+        dy = randn(g, c, n, scale=0.5 / (rep * c) ** 0.5)
+        out = gmm.grouped_matmul_dw(x, dy, counts, gw)
+        ref = gmm.grouped_matmul_dw_reference(x, dy, counts, gw)
+
+        def run():
+            return gmm.grouped_matmul_dw(x, dy, counts, gw)
+
+        def plain():
+            return gmm.grouped_matmul_dw_reference(x, dy, counts, gw)
+        a = x.view(gw, rep * c, k).transpose(1, 2)
+        b = dy.view(gw, rep * c, n)
+        # the experts whose groups are all empty
+        zero = out[[e for e in range(gw) if set(range(e * rep, e * rep + rep))
+                    <= set(empty)]]
+    else:
+        # the forward's w [Gw, K', N'] is stored with N' contiguous; dx
+        # reads it transposed, [N', K'] with K' contiguous
+        w = randn(gw, n, k, scale=0.5 / k ** 0.5).transpose(1, 2) \
+            if kind == "dx" else randn(gw, k, n, scale=0.5 / k ** 0.5)
+        if kind == "dx":
+            out = gmm.grouped_matmul_dx(x, w.transpose(1, 2), counts)
+        else:
+            out = gmm.grouped_matmul(x, w, counts)
+        ref = gmm.grouped_matmul_reference(x.float(), w.float(), counts)
+
+        def run():
+            if kind == "dx":
+                return gmm.grouped_matmul_dx(x, w.transpose(1, 2), counts)
+            return gmm.grouped_matmul(x, w, counts)
+
+        def plain():
+            return gmm.grouped_matmul_reference(x, w, counts)
+        a, b = x.view(gw, rep * c, k), w
+        zero = out[list(empty)]
+    if device != "cpu":
+        torch.cuda.synchronize()
+    name = _dtype_name(dtype)
+    tol = TOL_GMM[name]
+    err = _max_err(out, ref)
+    what = f"grouped_matmul{'_dw' if kind == 'dw' else ''} ({name}, {call})"
+    if not torch.isfinite(out.float()).all() or err > tol:
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"max abs err {err:.3e} > {tol:.0e}")
+    if not zero.numel() or zero.abs().max() != 0:
+        raise AssertionError(f"{what}: a planted empty group is not zeros")
+    rel_l2, planted = _hold_tiles(out.reshape(-1, out.shape[-1]),
+                                  ref.reshape(-1, ref.shape[-1]), what)
+    ms = call_ms = plain_ms = bmm_ms = gmm_ms = None
+    gmm_how = "not timed on the CPU"
+    if device != "cpu":
+        ms, call_ms = time_ms(lambda i: run(), 1)
+        plain_ms, _ = time_ms(lambda i: plain(), 1, iters=3, warmup=1)
+        bmm_ms, _ = time_ms(lambda i: torch.bmm(a, b), 1)
+        gmm_ms, gmm_how = _grouped_mm_ms(torch, a, b)
+    bound_ms, bound_by = _gmm_bound(kind, counts.tolist(), gw, c, k, n,
+                                    x.element_size())
+    return {"dtype": name, "call": call, "kernel": "grouped_matmul_dw"
+            if kind == "dw" else "grouped_matmul", "G": g, "Gw": gw,
+            "C": c, "K": k, "N": n, "empty_groups": list(empty),
+            "live_groups": int((counts > 0).sum()),
+            "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
+            "rel_l2_planted": planted, "empty_exact_zero": True,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": bmm_ms, "library_computes":
+            "torch.bmm over x.view(Gw, rep C, K) (dw: x^T and dy so "
+            "viewed; output in x's dtype)", "grouped_mm_ms": gmm_ms,
+            "grouped_mm_call": gmm_how, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_kernel_gmm(device="cuda", groups=GMM_GROUPS, calls=GMM_CALLS):
+    """Kernels 8 and 9 at the recipe's six expert-GEMM calls (fc1, fc2,
+    their dx and dw), bf16 and fp32; returns the cases, led by bf16
+    fc1."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
+    cases = []
+    seed = 900
+    for dtype in (torch.bfloat16, torch.float32):
+        for call, k, n in calls:
+            cases.append(gmm_case(gmm, torch, dtype, call, k, n, seed,
+                                  device, groups))
+            seed += 1
+            if device != "cpu":
+                torch.cuda.empty_cache()
+    for c in cases:
+        emit({"phase": "kernel_gmm", **c})
+    return cases
+
+
 # -- kernel 1 with dropout; kernels 3 and 4: the backward ---------------
 
 
@@ -1176,6 +1383,7 @@ def reset_counts():
     (enabled), just before a run whose counts are read."""
     from paddlefleetx_tpu_torch.observability import metrics
     from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
     from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
     fa.flash_attention.launches = 0
     for name in DECODE_KERNELS:
@@ -1184,23 +1392,29 @@ def reset_counts():
     fa.flash_attention_backward.launches_dkv = 0
     fa.flash_attention_backward.launches_dq = 0
     qmm.quantized_matmul.launches = 0
+    gmm.grouped_matmul.launches = 0
+    gmm.grouped_matmul_dw.launches = 0
     metrics.set_enabled(True)
     metrics.get_registry().reset()
 
 
 def read_counts() -> dict:
     """Every kernel's launch count and the registry's ``attention/*``,
-    ``quant/*`` and ``serving/*`` counters, just after a run."""
+    ``quant/*``, ``moe/*`` and ``serving/*`` counters, just after a
+    run."""
     from paddlefleetx_tpu_torch.observability import metrics
     from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
     from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
     counters = metrics.get_registry().snapshot()["counters"]
     counts = {"flash_attention": fa.flash_attention.launches,
               "flash_bwd_dkv": fa.flash_attention_backward.launches_dkv,
               "flash_bwd_dq": fa.flash_attention_backward.launches_dq,
               "quantized_matmul": qmm.quantized_matmul.launches,
+              "grouped_matmul": gmm.grouped_matmul.launches,
+              "grouped_matmul_dw": gmm.grouped_matmul_dw.launches,
               "counters": {k: v for k, v in sorted(counters.items())
-                           if k.startswith(("attention/", "quant/",
+                           if k.startswith(("attention/", "quant/", "moe/",
                                             "serving/"))}}
     for name in DECODE_KERNELS:
         counts[name] = getattr(fa, name).launches
@@ -1299,8 +1513,11 @@ def phase_serve(device="cuda", overrides=(), requests=16, slots=8,
 #: kernel-name pieces that sort a device kernel into a category
 KERNEL_CATEGORIES = (("flash_decode", ("decode_kernel",)),
                      ("flash_attention", ("flash_fwd",)),
-                     ("flash_backward", ("flash_bwd",)),
+                     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+                     ("flash_bwd_dq", ("flash_bwd_dq",)),
                      ("quantized_matmul", ("qmm_",)),
+                     ("grouped_matmul_dw", ("gmm_dw_",)),
+                     ("grouped_matmul", ("gmm_mma_", "gmm_f32_")),
                      ("gemm", ("gemm", "nvjet", "splitkreduce", "cutlass",
                                "xmma")))
 
@@ -2158,10 +2375,11 @@ def phase_parity_int8(device="cuda", overrides=(), max_dec_len=48,
 # -- the training path --------------------------------------------------
 
 
-def train_argv(data_dir, out_dir, overrides, device):
-    """``train`` entry-point arguments: the 345M pretraining recipe on
-    the corpus in ``data_dir``, plus ``overrides``."""
-    argv = ["-c", TRAIN_CONFIG]
+def train_argv(data_dir, out_dir, overrides, device, config=TRAIN_CONFIG):
+    """``train`` entry-point arguments: the pretraining recipe
+    ``config`` (the 345M one by default) on the corpus in ``data_dir``,
+    plus ``overrides``."""
+    argv = ["-c", config]
     if device != "cuda":
         argv += ["--device", device]
     over = [f"Engine.save_load.output_dir={out_dir}"]
@@ -2172,14 +2390,14 @@ def train_argv(data_dir, out_dir, overrides, device):
     return argv
 
 
-def write_train_corpus(path, overrides, steps):
+def write_train_corpus(path, overrides, steps, config=TRAIN_CONFIG):
     """A seeded synthetic corpus (``data/synthetic.py``) covering
-    ``steps`` batches of the recipe (cut by ``overrides``), and at least
-    200k tokens, so the recipe's 949 / 50 / 1 split leaves documents for
-    evaluation."""
+    ``steps`` batches of the recipe ``config`` (cut by ``overrides``),
+    and at least 200k tokens, so the recipe's 949 / 50 / 1 split leaves
+    documents for evaluation."""
     from paddlefleetx_tpu_torch.data.synthetic import write_corpus
     from paddlefleetx_tpu_torch.utils.config import get_config
-    cfg = get_config(TRAIN_CONFIG, list(overrides))
+    cfg = get_config(config, list(overrides))
     tokens = max(200_000, cfg.Global.global_batch_size *
                  (cfg.Data.Train.dataset.max_seq_len + 1) * (steps + 4))
     write_corpus(path, cfg.Model.vocab_size, tokens,
@@ -2289,10 +2507,10 @@ def phase_train(device="cuda", overrides=(), steps=30):
     return record, engine
 
 
-def phase_train_profile(engine, data_seed=9):
+def phase_train_profile(engine, data_seed=9, phase="train_profile"):
     """Where one training step's device time goes (the train phase's
     engine and model, one more step on a seeded batch): kernel time by
-    category and the device's idle share."""
+    category and the device's idle share, printed as ``phase``."""
     import numpy as np
     import torch
     cfg = engine.configs
@@ -2304,9 +2522,9 @@ def phase_train_profile(engine, data_seed=9):
     batch = (tokens[:, :-1], np.broadcast_to(np.arange(s), (b, s)).copy(),
              tokens[:, 1:], np.ones((b, s), np.float32))
     engine.train_step(batch)
-    window = profile_window(torch, "train_step",
+    window = profile_window(torch, phase.replace("profile", "step"),
                             lambda: engine.train_step(batch), 1)
-    emit({"phase": "train_profile", "windows": [window]})
+    emit({"phase": phase, "windows": [window]})
     return window
 
 
@@ -2324,17 +2542,24 @@ PARITY_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "grad_leaf_rel": 5e-4}
 def _first_grads(module, batch, seed):
     """Every parameter's gradient of one ``loss_fn`` on ``batch`` (host
     arrays), left zeroed in the model."""
+    return _loss_and_grads(module, batch, seed)[1]
+
+
+def _loss_and_grads(module, batch, seed):
+    """The training loss of one ``loss_fn`` on ``batch`` (host arrays)
+    and every parameter's gradient, left zeroed in the model."""
     import numpy as np
     import torch
     model = module.model
     model.train()
     dev = next(model.parameters()).device
     data = tuple(torch.from_numpy(np.asarray(x)).to(dev) for x in batch)
-    module.loss_fn(model, data, seed, train=True).backward()
+    loss = module.loss_fn(model, data, seed, train=True)
+    loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
              if p.grad is not None}
     model.zero_grad(set_to_none=True)
-    return grads
+    return float(loss.detach()), grads
 
 
 def _leaf_diff(grads, ref):
@@ -2493,6 +2718,306 @@ def phase_train_cli(device="cuda", overrides=(), steps=4):
           "bit_exact": a == b, "tol_rel": 1e-3})
 
 
+# -- MoE training: the 8x345M recipe on one card -----------------------
+
+#: the MoE recipe's parallel degrees collapse to one card (its expert
+#: axis then takes the JAX package's own ``ep_degree: 1`` route)
+MOE_ONE_CARD = ["Distributed.dp_degree=1",
+                "Distributed.sharding.sharding_degree=1",
+                "Distributed.ep_degree=1"]
+#: kernel 8 launches a layer and microbatch (fc1, fc2 forward; their dx)
+#: and kernel 9's (their dw), under ``save_dots``
+GMM_PER_LAYER = {"grouped_matmul": 4, "grouped_matmul_dw": 2}
+
+
+def moe_flops_per_token(mcfg, seq) -> float:
+    """Model FLOPs a token of an MoE GPT's training step with the top-k
+    experts each token runs: the dense (Megatron) formula, which counts
+    one FFN of width ``4 h``, plus ``k - 1`` more expert FFNs (forward
+    and backward, ``3 x 2 x 2 h m``) and the router (``3 x 2 h E``) in
+    every layer."""
+    from paddlefleetx_tpu_torch.observability import flops
+    L, h, m = mcfg.num_layers, mcfg.hidden_size, mcfg.ffn_hidden_size
+    dense = flops.model_flops_per_token(L, h, mcfg.vocab_size, seq)
+    return dense + L * (12.0 * (mcfg.moe_top_k - 1) * h * m +
+                        6.0 * h * mcfg.moe_num_experts)
+
+
+def check_moe_counts(counts, steps, acc, layers, label):
+    """Kernels 8 and 9 launched ``GMM_PER_LAYER`` times a layer and
+    microbatch (kernel 8 more often: ``save_dots`` recomputed the expert
+    GEMMs), kernels 1, 3, 4 once, every MoE block on ``sort_pallas``,
+    no fallback of either dispatch and no dense attention."""
+    runs = steps * acc * layers
+    want = {k: v * runs for k, v in GMM_PER_LAYER.items()}
+    want.update({k: runs for k in ("flash_attention", "flash_bwd_dkv",
+                                   "flash_bwd_dq")})
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    c = counts["counters"]
+    fallbacks = sorted(k for k in c if k.startswith(
+        ("moe/fallback/", "attention/fallback/")))
+    if fallbacks or c.get("moe/sort_pallas", 0) < runs or \
+            c.get("moe/sort", 0) or c.get("attention/dense", 0):
+        raise AssertionError(f"{label}: counters {c}")
+
+
+def phase_train_moe(device="cuda", overrides=(), steps=16):
+    """The MoE training path: the 8x345M recipe at full width (24
+    layers, hidden 1024, 8 experts, top-2, capacity 1.25, aux and z
+    losses, ``sort_pallas``, ``save_dots``, dropout 0.1 / 0.1, bf16,
+    local batch 16 in microbatches of 2 x 1024) on one card through
+    ``cli.train_main`` for ``steps`` steps on a seeded synthetic corpus,
+    with the counts zeroed just before and read just after. Asserts
+    finite, falling losses and the launches of kernels 8 and 9 a step
+    (``check_moe_counts``). Returns the record and the engine."""
+    import numpy as np
+    import torch
+    from paddlefleetx_tpu_torch import cli
+    from paddlefleetx_tpu_torch.models.gpt.model import compute_context
+    from paddlefleetx_tpu_torch.observability import flops
+    tmp = tempfile.mkdtemp(prefix="pfx_moe_")
+    try:
+        over = [*MOE_ONE_CARD, f"Engine.max_steps={steps}",
+                "Engine.logging_freq=1", "Engine.eval_freq=1000000",
+                "Engine.eval_iters=1", "Engine.save_load.save_steps=1000000",
+                *TRAIN_LR, *overrides]
+        data = os.path.join(tmp, "data")
+        cfg = write_train_corpus(data, over, steps, MOE_CONFIG)
+        argv = train_argv(data, os.path.join(tmp, "out"), over, device,
+                          MOE_CONFIG)
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        engine = cli.train_main(argv)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mcfg = engine.module.model_config
+    losses = [h["loss"] for h in engine.history]
+    if len(losses) != steps or not all(map(lambda x: x == x and
+                                           abs(x) < float("inf"), losses)):
+        raise AssertionError(f"train_moe: losses {losses}")
+    first5, last5 = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last5 < first5:
+        raise AssertionError(f"train_moe: the loss did not fall "
+                             f"({first5:.4f} -> {last5:.4f})")
+    acc, layers = engine.accumulate_steps, mcfg.num_layers
+    check_moe_counts(counts, steps, acc, layers, "train_moe")
+    seq = cfg.Data.Train.dataset.max_seq_len
+    micro = cfg.Global.micro_batch_size
+    # the trained model's router loss and cross-entropy on a seeded
+    # microbatch (no dropout)
+    tokens = torch.from_numpy(np.random.default_rng(12).integers(
+        0, mcfg.vocab_size, (micro, seq + 1))).to(engine.device)
+    with torch.no_grad(), compute_context(mcfg, engine.device):
+        logits, aux = engine.model(tokens[:, :-1], return_aux=True)
+        ce = torch.nn.functional.cross_entropy(
+            logits.float().flatten(0, 1), tokens[:, 1:].flatten())
+    costs = [h["train_cost"] for h in engine.history[1:]]
+    tokens_step = cfg.Global.global_batch_size * seq
+    p50 = _percentile(costs, 0.5)
+    fpt = flops.model_flops_per_token(layers, mcfg.hidden_size,
+                                      mcfg.vocab_size, seq)
+    fpt_moe = moe_flops_per_token(mcfg, seq)
+    record = {
+        "phase": "train_moe", "model": "MoE GPT 8x345M", "dtype": mcfg.dtype,
+        "layers": layers, "hidden": mcfg.hidden_size,
+        "heads": mcfg.num_attention_heads, "ffn": mcfg.ffn_hidden_size,
+        "vocab": mcfg.vocab_size, "experts": mcfg.moe_num_experts,
+        "top_k": mcfg.moe_top_k,
+        "capacity_factor": mcfg.moe_capacity_factor,
+        "dispatch": mcfg.moe_dispatch,
+        "params": sum(p.numel() for p in engine.model.parameters()),
+        "batch": cfg.Global.global_batch_size, "micro_batch": micro,
+        "accumulate_steps": acc, "seq": seq,
+        "dropout": [mcfg.hidden_dropout_prob,
+                    mcfg.attention_probs_dropout_prob],
+        "recompute": mcfg.recompute_granularity,
+        "lr_overrides": TRAIN_LR, "steps": steps, "wall_s": wall,
+        "first_step_s": engine.history[0]["train_cost"],
+        "step_p50_s": p50, "step_p90_s": _percentile(costs, 0.9),
+        "tokens_per_s": tokens_step / p50,
+        "model_flops_per_token": fpt, "mfu": flops.mfu(tokens_step / p50,
+                                                       fpt),
+        "moe_flops_per_token": fpt_moe,
+        "mfu_top_k": flops.mfu(tokens_step / p50, fpt_moe),
+        "mfu_peak": "bf16 dense 989 TFLOP/s",
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "mean_first5": first5, "mean_last5": last5,
+        "aux_after": float(aux), "ce_after": float(ce),
+        "launches_per_step": {k: counts[k] / steps for k in (
+            "grouped_matmul", "grouped_matmul_dw", "flash_attention",
+            "flash_bwd_dkv", "flash_bwd_dq")},
+        "launches": {k: counts[k] for k in (
+            "grouped_matmul", "grouped_matmul_dw", "flash_attention",
+            "flash_bwd_dkv", "flash_bwd_dq")},
+        "counters": counts["counters"]}
+    if device != "cpu":
+        record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(record)
+    return record, engine
+
+
+#: the MoE parity phase's limits: fp32, the two runs differ in summation
+#: order only; bf16, each GEMM's output rounds to bf16 from sums taken in
+#: another order, and a near-tied top-2 choice of the second block's
+#: router may flip with it
+PARITY_MOE_TOL = {"float32": {"loss_rel": 1e-4, "grad_leaf_rel": 1e-4},
+                  "bfloat16": {"loss_rel": 5e-3, "grad_leaf_rel": 5e-2}}
+
+
+def phase_train_moe_parity(device="cuda", overrides=(), batch=2,
+                           data_seed=77):
+    """The MoE recipe at full width cut to 2 layers, dropout 0: the same
+    weights and batch through ``sort_pallas`` (kernels 8 and 9) and
+    ``sort`` (``torch.bmm`` on the same grouped buffer), in fp32 and in
+    bf16; the losses and every leaf's gradient held within
+    ``PARITY_MOE_TOL``, and the kernels' counts fire in the first run
+    and not in the second; then the fp32 kernel gradient again with
+    kernel 9's dw of expert 0 planted as zeros, which the leaf check
+    must refuse."""
+    import functools
+
+    import numpy as np
+    from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    base = [*MOE_ONE_CARD, "Model.num_layers=2",
+            "Model.hidden_dropout_prob=0.0",
+            "Model.attention_probs_dropout_prob=0.0",
+            f"Global.local_batch_size={batch}",
+            f"Global.micro_batch_size={batch}", *overrides]
+    cfg = get_config(MOE_CONFIG, base)
+    seq = cfg.Data.Train.dataset.max_seq_len
+    rng = np.random.default_rng(data_seed)
+    tokens = rng.integers(0, cfg.Model.vocab_size, (batch, seq + 1))
+    data = (tokens[:, :-1], np.broadcast_to(np.arange(seq), (batch, seq))
+            .copy(), tokens[:, 1:], np.ones((batch, seq), np.float32))
+    record = {"phase": "train_moe_parity", "layers": 2, "batch": batch,
+              "seq": seq, "tol": PARITY_MOE_TOL}
+    for name, extra in (("float32",
+                         ["Engine.mix_precision.use_pure_fp16=False"]),
+                        ("bfloat16", [])):
+        state, runs = None, {}
+        for mode in ("sort_pallas", "sort"):
+            module = GPTModule(get_config(MOE_CONFIG, base + extra + [
+                f"Model.moe_dispatch={mode}"]), state_dict=state,
+                device=device)
+            mcfg = module.model_config
+            if mcfg.dtype != name or mcfg.moe_dispatch != mode:
+                raise AssertionError(f"train_moe_parity: {mode} run is "
+                                     f"{mcfg.dtype}, {mcfg.moe_dispatch}")
+            if state is None:
+                state = {k: v.clone() for k, v in
+                         module.model.state_dict().items()}
+            reset_counts()
+            loss, grads = _loss_and_grads(module, data, 0)
+            counts = read_counts()
+            layers = mcfg.num_layers
+            want = {k: v * layers if mode == "sort_pallas" else 0
+                    for k, v in GMM_PER_LAYER.items()}
+            got = {k: counts[k] for k in want}
+            c = counts["counters"]
+            if got != want or c.get(f"moe/{mode}", 0) < layers or \
+                    any(k.startswith("moe/fallback/") for k in c):
+                raise AssertionError(f"train_moe_parity: {name} {mode} "
+                                     f"launched {got} (expected {want}), "
+                                     f"counters {c}")
+            runs[mode] = (loss, grads, got)
+            del module
+        (la, ga, na), (lb, gb, nb) = runs["sort_pallas"], runs["sort"]
+        leaf, leaf_rel = _leaf_diff(ga, gb)
+        loss_rel = abs(la - lb) / abs(lb)
+        tol = PARITY_MOE_TOL[name]
+        record[name] = {"loss_kernels": la, "loss_bmm": lb,
+                        "loss_rel_diff": loss_rel, "worst_leaf": leaf,
+                        "worst_leaf_rel_diff": leaf_rel,
+                        "launches_kernels": na, "launches_bmm": nb}
+        del runs, ga
+        if loss_rel > tol["loss_rel"] or leaf_rel > tol["grad_leaf_rel"]:
+            emit(record)
+            raise AssertionError(
+                f"train_moe_parity: {name} loss rel diff {loss_rel:.2e}, "
+                f"worst leaf {leaf} {leaf_rel:.2e} (tol {tol})")
+        if name == "float32":
+            module = GPTModule(get_config(MOE_CONFIG, base + extra),
+                               state_dict=state, device=device)
+            dw_kernel = gmm.grouped_matmul_dw
+
+            @functools.wraps(dw_kernel)
+            def planted(*args, **kwargs):
+                dw = dw_kernel(*args, **kwargs).clone()
+                dw[0] = 0
+                return dw
+            gmm.grouped_matmul_dw = planted
+            try:
+                grads = _loss_and_grads(module, data, 0)[1]
+            finally:
+                gmm.grouped_matmul_dw = dw_kernel
+            p_leaf, p_rel = _leaf_diff(grads, gb)
+            record[name].update(planted_dw_worst_leaf=p_leaf,
+                                planted_dw_worst_leaf_rel_diff=p_rel)
+            del module, grads
+            if not p_rel > tol["grad_leaf_rel"]:
+                emit(record)
+                raise AssertionError(
+                    f"train_moe_parity: with expert 0's dw planted as zeros "
+                    f"the worst leaf {p_leaf} reads {p_rel:.2e}, within "
+                    f"{tol['grad_leaf_rel']:.0e}")
+        del gb
+    emit(record)
+    return record
+
+
+def gmm_rows(cases, train_moe) -> list:
+    """The kernels line's rows of kernels 8 and 9: the main path's case
+    (bf16 fc1, forward and dw) with the worst errors over all their
+    cases, the times at every shape, and the launches of ``train_moe``
+    (counted from zero just before it)."""
+    rows = []
+    for name, replaces in (
+            ("grouped_matmul",
+             "paddlefleetx_tpu/ops/pallas/grouped_matmul.py:52"),
+            ("grouped_matmul_dw",
+             "paddlefleetx_tpu/ops/pallas/grouped_matmul.py:76")):
+        mine = [c for c in cases if c["kernel"] == name]
+        head = mine[0]
+        err = max(c["max_abs_err"] for c in mine)
+        launches = train_moe["launches"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddlefleetx_tpu_torch/csrc/grouped_matmul.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": {"train_moe": launches},
+            "max_abs_err": err, "max_err": err,
+            "tol": {c["dtype"]: c["tol"] for c in mine},
+            "max_rel_l2": max(c["rel_l2"] for c in mine),
+            "min_rel_l2_planted": min(c["rel_l2_planted"] for c in mine),
+            "tol_rel_l2": TOL_REL_L2, "normwise_per": "64 x 64 output tile",
+            "empty_exact_zero": all(c["empty_exact_zero"] for c in mine),
+            "ms": head["ms"], "kernel_ms": head["ms"],
+            "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library_computes": head["library_computes"],
+            "grouped_mm_ms": head["grouped_mm_ms"],
+            "grouped_mm_call": head["grouped_mm_call"],
+            "shape": {k: head[k] for k in ("dtype", "call", "G", "Gw", "C",
+                                           "K", "N", "live_groups")},
+            "by_shape": {f"{c['dtype']}_{c['call']}": {
+                k: c[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                                  "grouped_mm_ms", "bound_ms", "bound_by")}
+                for c in mine},
+            "cases": len(mine)})
+    return rows
+
+
 def decode_window_rows(window, serve_paged, spec) -> list:
     """The kernels line's rows of kernels 6a, 5 and 6b: the serving
     path's case (the first of each phase) with the worst errors over
@@ -2639,7 +3164,7 @@ def int8_rows(dec8, window8, qmm_cases, runs) -> list:
 
 
 def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
-                 serve_paged=None, spec=None, int8=None) -> dict:
+                 serve_paged=None, spec=None, int8=None, moe=None) -> dict:
     """The per-kernel record: each kernel's main-path shape (kernel 1:
     the serving case first, the training case beside it; kernels 3 and
     4: the recipe's bf16 case with dropout), the worst error over all
@@ -2731,6 +3256,8 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
         rows += decode_window_rows(window, serve_paged, spec)
     if int8 is not None:
         rows += int8_rows(*int8)
+    if moe is not None:
+        rows += gmm_rows(*moe)
     return {"kernels": rows}
 
 
@@ -2752,6 +3279,7 @@ def main() -> int:
     window = phase_decode_kernels()
     dec8, window8 = phase_int8_decode_kernels()
     qmm_cases = phase_kernel_qmm()
+    gmm_cases = phase_kernel_gmm()
     fwd_drop = phase_kernel1_dropout()
     bwd = phase_backward()
     torch.cuda.empty_cache()
@@ -2785,10 +3313,17 @@ def main() -> int:
     phase_train_parity()
     torch.cuda.empty_cache()
     phase_train_cli()
+    torch.cuda.empty_cache()
+    train_moe, engine = phase_train_moe()
+    phase_train_profile(engine, phase="train_moe_profile")
+    del engine
+    torch.cuda.empty_cache()
+    phase_train_moe_parity()
     print(card, flush=True)
     emit(kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window,
                       serve_paged, spec,
-                      (dec8, window8, qmm_cases, int8_runs)))
+                      (dec8, window8, qmm_cases, int8_runs),
+                      (gmm_cases, train_moe)))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

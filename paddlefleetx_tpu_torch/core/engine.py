@@ -10,7 +10,7 @@ the scheduled rate, logs every ``logging_freq`` steps, evaluates every
 ``save_steps``; ``save`` / ``load`` write and restore a checkpoint
 (``core/checkpoint.py``) and ``Engine.save_load.ckpt_dir`` resumes at
 construction. The engine knobs this slice does not port (data, model,
-pipeline or sharding parallelism, optimizer offload, the profiler
+pipeline, sharding or expert parallelism, optimizer offload, the profiler
 window, telemetry, asynchronous or preemption saves, retention, epoch
 run mode) raise ``NotImplementedError``; none is ignored.
 """
@@ -42,6 +42,7 @@ def _unported_knobs(configs) -> List[str]:
         "Distributed.mp_degree": (dist.get("mp_degree") or 1) > 1,
         "Distributed.pp_degree": (dist.get("pp_degree") or 1) > 1,
         "Distributed.cp_degree": (dist.get("cp_degree") or 1) > 1,
+        "Distributed.ep_degree": (dist.get("ep_degree") or 1) > 1,
         "Distributed.sharding.sharding_degree":
             (sharding.get("sharding_degree") or 1) > 1,
         "Distributed.sharding.sharding_offload":
@@ -78,8 +79,8 @@ class Engine:
         if asked:
             raise NotImplementedError(
                 f"engine knobs not ported to the PyTorch package yet: "
-                f"{asked} (one GPU, synchronous saves; multi-GPU is the "
-                f"next slice)")
+                f"{asked} (one GPU, synchronous saves; multi-GPU, expert "
+                f"parallelism included, is a later slice)")
         self.device = resolve_device(device)
         if torch.device(module.device) != self.device:
             raise ValueError(f"module on {module.device}, engine on "

@@ -50,8 +50,8 @@ JAX package's names, ``docs/inference.md``), and a
 :meth:`GenerationServer.summary` with decode tokens/s and TTFT
 percentiles. Not ported yet (asking for them raises
 ``NotImplementedError``): the host KV tier (``host_pool_bytes``),
-device-resident decode loops (``device_loop_ticks > 1``), LoRA
-adapters, deadlines, queue shedding, SIGTERM drain, fault injection,
+device-resident decode loops (``device_loop_ticks > 1``), MoE models,
+LoRA adapters, deadlines, queue shedding, SIGTERM drain, fault injection,
 KV export / import, the prefix store and the event trace.
 """
 
@@ -159,6 +159,10 @@ class GenerationServer:
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         cfg = model.config
+        if cfg.moe_num_experts:
+            raise NotImplementedError(
+                "serving an MoE model is not ported: the port trains MoE "
+                "models; their decode path is a later slice")
         self.paged = bool(page_size or pool_pages or cfg.kv_page_size)
         if self.paged:
             page_size = int(page_size or cfg.kv_page_size)

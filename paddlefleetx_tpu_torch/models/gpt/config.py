@@ -4,8 +4,13 @@
 Same fields, defaults and ``from_config`` as the JAX package, so one
 YAML ``Model`` section builds either model. The knobs whose code paths
 this port does not have yet raise ``NotImplementedError`` at
-construction instead of being ignored: LoRA, MoE, context parallelism
-and unfused q/k/v projections. The serving path's int8 knobs act:
+construction instead of being ignored: LoRA, context parallelism and
+unfused q/k/v projections. The MoE knobs act on the training path
+(``models/gpt/moe.py``) and are validated as in the JAX package
+(``1 <= moe_top_k <= moe_num_experts``, ``moe_capacity_factor > 0``, a
+known ``moe_dispatch``, no LoRA beside MoE); serving an MoE model is a
+later slice (``GenerationServer`` and ``generate()`` raise). The
+serving path's int8 knobs act:
 ``kv_cache_dtype: int8`` (an int8 KV cache with fp32 scales, read by
 the decode kernels' int8 instances) and ``quant_execution:
 weight_only_int8`` (the dense sites through the int8 matmul kernel;
@@ -137,10 +142,26 @@ class GPTConfig:
                              f"{self.quant_execution!r}")
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute dtype {self.dtype!r}")
+        if self.moe_num_experts:
+            if not 1 <= self.moe_top_k <= self.moe_num_experts:
+                raise ValueError(
+                    f"moe_top_k ({self.moe_top_k}) must be in "
+                    f"[1, moe_num_experts={self.moe_num_experts}]")
+            if self.moe_capacity_factor <= 0:
+                raise ValueError("moe_capacity_factor must be > 0")
+            if self.moe_dispatch not in ("einsum", "sort",
+                                         "sort_pallas"):
+                raise ValueError(
+                    f"unknown moe_dispatch {self.moe_dispatch!r} "
+                    f"(expected 'einsum', 'sort' or 'sort_pallas')")
+        if self.lora_rank and self.moe_num_experts:
+            raise ValueError(
+                "lora_rank > 0 is incompatible with moe_num_experts > 0: "
+                "the MoE block replaces the fc1/fc2 sites the adapter "
+                "pair rides on")
         unported = {
             "lora_rank": self.lora_rank != 0,
             "lora_num_adapters": self.lora_num_adapters != 0,
-            "moe_num_experts": self.moe_num_experts != 0,
             "context_parallel": self.context_parallel,
             "fuse_attn_qkv": not self.fuse_attn_qkv,
         }
@@ -148,8 +169,8 @@ class GPTConfig:
         if asked:
             raise NotImplementedError(
                 f"GPTConfig knobs not ported to the PyTorch package yet: "
-                f"{asked} (LoRA, MoE, context parallelism and unfused "
-                f"q/k/v are later slices)")
+                f"{asked} (LoRA, context parallelism and unfused q/k/v "
+                f"are later slices)")
 
     @property
     def head_dim(self) -> int:

@@ -20,7 +20,11 @@ Layouts (flax -> torch, ``nn.Linear`` stores ``[out, in]``):
 - a quantized tree's (``quant_execution: weight_only_int8``) int8
   kernels move as the fp ones do, and each ``kernel_scale`` becomes
   the site's ``weight_scale``: ``[3, nh, hd]`` -> ``[3*nh*hd]`` for
-  ``qkv_proj``, ``[N]`` as it is for the others.
+  ``qkv_proj``, ``[N]`` as it is for the others;
+- an MoE block's ``moe_mlp`` leaves (``router_kernel [h, E]``, ``wi [E,
+  h, m]``, ``wi_bias [E, m]``, ``wo [E, m, h]``, ``wo_bias [E, h]``) in
+  place of ``linear1`` / ``linear2``, as they are: the port keeps the
+  JAX names and layouts.
 
 The decoder stack comes either unrolled (``decoder_{i}`` subtrees) or
 scanned (one ``decoder`` subtree whose leaves lead with the layer
@@ -52,6 +56,8 @@ def _np(x) -> np.ndarray:
 _SITES = (("self_attn.qkv_proj", ("self_attn", "qkv_proj")),
           ("self_attn.out_proj", ("self_attn", "out_proj")),
           ("linear1", ("linear1",)), ("linear2", ("linear2",)))
+#: the leaves of an MoE block's ``moe_mlp``, the same in both packages
+_MOE_LEAVES = ("router_kernel", "wi", "wi_bias", "wo", "wo_bias")
 
 
 def _layer_from_flax(p: Mapping, cfg: GPTConfig) -> Dict[str, np.ndarray]:
@@ -68,15 +74,18 @@ def _layer_from_flax(p: Mapping, cfg: GPTConfig) -> Dict[str, np.ndarray]:
         "self_attn.out_proj.bias": _np(attn["out_proj"]["bias"]),
         "norm2.weight": _np(p["norm2"]["scale"]),
         "norm2.bias": _np(p["norm2"]["bias"]),
-        "linear1.weight": _np(p["linear1"]["kernel"]).T,
-        "linear1.bias": _np(p["linear1"]["bias"]),
-        "linear2.weight": _np(p["linear2"]["kernel"]).T,
-        "linear2.bias": _np(p["linear2"]["bias"]),
     }
+    if "moe_mlp" in p:
+        for leaf in _MOE_LEAVES:
+            out["moe_mlp." + leaf] = _np(p["moe_mlp"][leaf])
+    else:
+        for i in (1, 2):
+            out[f"linear{i}.weight"] = _np(p[f"linear{i}"]["kernel"]).T
+            out[f"linear{i}.bias"] = _np(p[f"linear{i}"]["bias"])
     for prefix, path in _SITES:
         site = p
         for name in path:
-            site = site[name]
+            site = site.get(name, {})
         if "kernel_scale" in site:
             out[prefix + ".weight_scale"] = \
                 _np(site["kernel_scale"]).reshape(-1)
@@ -97,11 +106,14 @@ def _layer_to_flax(sd: Mapping[str, np.ndarray], cfg: GPTConfig) -> dict:
                     nh, hd, h),
                 "bias": sd["self_attn.out_proj.bias"]}},
         "norm2": {"scale": sd["norm2.weight"], "bias": sd["norm2.bias"]},
-        "linear1": {"kernel": sd["linear1.weight"].T,
-                    "bias": sd["linear1.bias"]},
-        "linear2": {"kernel": sd["linear2.weight"].T,
-                    "bias": sd["linear2.bias"]},
     }
+    if "moe_mlp.wi" in sd:
+        tree["moe_mlp"] = {leaf: sd["moe_mlp." + leaf]
+                           for leaf in _MOE_LEAVES}
+    else:
+        for i in (1, 2):
+            tree[f"linear{i}"] = {"kernel": sd[f"linear{i}.weight"].T,
+                                  "bias": sd[f"linear{i}.bias"]}
     for prefix, path in _SITES:
         scale = sd.get(prefix + ".weight_scale")
         if scale is not None:

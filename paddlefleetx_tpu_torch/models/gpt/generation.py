@@ -7,7 +7,8 @@ the JAX package's ``models/gpt/generation.py``): the lockstep
   flash forward kernel (pad keys masked by a ``[b, 1, 1, prompt]``
   bias), then decodes every row at one shared cache index through
   ``flash_decode`` (shared offset + the ``[b, 1, 1, capacity]``
-  validity bias). Greedy and sampling; beam search is not ported yet.
+  validity bias). Greedy and sampling; beam search and MoE models are
+  not ported yet.
 - The slot primitives keep a persistent ``[slots, ...]`` cache whose
   rows are independent requests at independent lengths:
   :func:`prefill_into_slots` admits requests into free rows (right
@@ -219,6 +220,10 @@ def generate(model: GPTForPretraining, input_ids, attention_mask,
     if gen_cfg.decode_strategy == "beam_search":
         raise NotImplementedError("beam search is not ported yet")
     cfg: GPTConfig = model.config
+    if cfg.moe_num_experts:
+        raise NotImplementedError(
+            "generating with an MoE model is not ported: the port trains "
+            "MoE models; their decode path is a later slice")
     dev = model.word_embeddings.device
     ids = torch.as_tensor(np.asarray(input_ids), device=dev).long()
     mask = torch.ones_like(ids) if attention_mask is None else \

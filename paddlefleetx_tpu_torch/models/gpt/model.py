@@ -51,6 +51,12 @@ prefill reads from its int8 cache.
 Under ``quant_execution: weight_only_int8`` the four dense sites (qkv,
 out, fc1, fc2) are :class:`QuantLinear`: an int8 weight and fp32 scales
 through the int8 matmul kernel (``ops/cuda/quantized_matmul.py``).
+
+With ``moe_num_experts > 0`` each block's FFN is ``moe_mlp``, the routed
+experts of ``moe.py`` (under ``sort_pallas`` on the grouped GEMM,
+kernels 8 and 9); each block returns its router auxiliary loss beside
+its output, :class:`GPTModel` sums them (``return_aux``) and the
+training losses add the sum, as the JAX package's sown ``moe_aux``.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from ...core.quantize import quantize_state_dict
 from ...observability import metrics
 from ...ops.attention import dot_product_attention
 from ...ops.cuda import flash_attention as fa
+from ...ops.cuda import grouped_matmul  # noqa: F401 (pfx::grouped_matmul)
 from ...ops.cuda import quantized_matmul as qmm
 from .config import GPTConfig
 
@@ -142,8 +149,12 @@ def _site(name: str):
 
 @functools.lru_cache(maxsize=None)
 def _dot_ops() -> frozenset:
+    # bmm: the expert einsums of the MoE einsum and sort modes; the
+    # grouped GEMM: sort_pallas
     return frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-                      torch.ops.pfx.flash_attention.default))
+                      torch.ops.aten.bmm.default,
+                      torch.ops.pfx.flash_attention.default,
+                      torch.ops.pfx.grouped_matmul.default))
 
 
 def recompute_policy(granularity: str):
@@ -407,7 +418,8 @@ def page_write(page_table: torch.Tensor, s: int, page: int, capacity: int,
 
 class TransformerDecoderLayer(nn.Module):
     """Pre-LN decoder block: ``x + dropout1(attn(ln1(x)))``, then
-    ``x + dropout2(mlp(ln2(x)))`` with a tanh-approximated GELU."""
+    ``x + dropout2(mlp(ln2(x)))`` with a tanh-approximated GELU, or with
+    ``moe_num_experts > 0`` the routed experts ``moe_mlp`` as the mlp."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -415,15 +427,19 @@ class TransformerDecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.self_attn = MultiHeadAttention(cfg)
         self.norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.linear1 = _dense(cfg, cfg.hidden_size, cfg.ffn_hidden_size)
-        self.linear2 = _dense(cfg, cfg.ffn_hidden_size, cfg.hidden_size)
+        if cfg.moe_num_experts:
+            from .moe import MoEMLP
+            self.moe_mlp = MoEMLP(cfg)
+        else:
+            self.linear1 = _dense(cfg, cfg.hidden_size, cfg.ffn_hidden_size)
+            self.linear2 = _dense(cfg, cfg.ffn_hidden_size, cfg.hidden_size)
 
     def forward(self, x, attn_bias=None, kv=None, cache_rows=None,
-                decode_offset=None, dropout_seed=None,
-                paged=None) -> torch.Tensor:
+                decode_offset=None, dropout_seed=None, paged=None):
         """One block; the cache arguments are
         :meth:`MultiHeadAttention.forward`'s, ``dropout_seed`` the
-        block's (None: no dropout)."""
+        block's (None: no dropout). Returns the block's output, and with
+        ``moe_num_experts > 0`` the pair ``(output, router aux loss)``."""
         drop = dropout_seed is not None
         rate = self.cfg.hidden_dropout_prob
 
@@ -433,6 +449,10 @@ class TransformerDecoderLayer(nn.Module):
         y = self.self_attn(self.norm1(x), attn_bias, kv, cache_rows,
                            decode_offset, seed(0), paged)
         x = x + hidden_dropout(y, rate, seed(1))
+        if self.cfg.moe_num_experts:
+            y, aux = self.moe_mlp(self.norm2(x),
+                                  seed(self.moe_mlp.DROPOUT_SITE))
+            return x + hidden_dropout(y, rate, seed(2)), aux
         with _site("mlp1"):
             y = self.linear1(self.norm2(x))
         y = F.gelu(y, approximate="tanh")
@@ -482,8 +502,8 @@ class GPTModel(nn.Module):
                 decode_offset: Union[int, torch.Tensor, None] = None,
                 dropout_seed: Optional[int] = None,
                 page_table: Optional[torch.Tensor] = None,
-                chunk_start: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                chunk_start: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
         """Hidden states ``[b, s, hidden]`` after the final norm (cache
         arguments as in :meth:`MultiHeadAttention.forward`; ``cache``
         is one ``(k, v)`` pair per layer, the page pools with a
@@ -493,7 +513,9 @@ class GPTModel(nn.Module):
         every layer). ``dropout_seed`` turns the
         configured dropout on (training); with ``use_recompute`` and
         gradients enabled each block runs under activation
-        checkpointing."""
+        checkpointing. With ``return_aux`` the pair ``(hidden states, the
+        MoE router aux loss summed over the blocks)``, the loss None for
+        a dense model."""
         cfg = self.cfg
         s = input_ids.shape[-1]
         if position_ids is None:
@@ -512,6 +534,8 @@ class GPTModel(nn.Module):
         paged = None if page_table is None else page_write(
             page_table, s, cache[0][0].shape[2],
             cfg.cache_capacity, decode_offset, chunk_start)
+        aux = x.new_zeros((), dtype=torch.float32) \
+            if cfg.moe_num_experts else None
         for i, layer in enumerate(self.decoder):
             seed = fold_seed(dropout_seed, i + 1) if drop else None
             if recompute:
@@ -523,7 +547,11 @@ class GPTModel(nn.Module):
                 x = layer(x, attn_bias,
                           cache[i] if cache is not None else None,
                           cache_rows, decode_offset, seed, paged)
-        return self.final_norm(x)
+            if aux is not None:
+                x, layer_aux = x
+                aux = aux + layer_aux
+        x = self.final_norm(x)
+        return (x, aux) if return_aux else x
 
 
 def tied_logits(x: torch.Tensor, word_emb: torch.Tensor) -> torch.Tensor:
@@ -547,12 +575,15 @@ class GPTForPretraining(nn.Module):
     def forward(self, input_ids, position_ids=None, attn_bias=None,
                 cache=None, cache_rows=None, decode_offset=None,
                 dropout_seed=None, page_table=None,
-                chunk_start=None) -> torch.Tensor:
-        """Logits ``[b, s, vocab]`` (arguments as in
+                chunk_start=None, return_aux: bool = False):
+        """Logits ``[b, s, vocab]``, with ``return_aux`` the pair
+        ``(logits, MoE aux loss)`` (arguments as in
         :meth:`GPTModel.forward`)."""
-        x = self.gpt(input_ids, position_ids, attn_bias, cache, cache_rows,
-                     decode_offset, dropout_seed, page_table, chunk_start)
-        return tied_logits(x, self.word_embeddings)
+        x, aux = self.gpt(input_ids, position_ids, attn_bias, cache,
+                          cache_rows, decode_offset, dropout_seed,
+                          page_table, chunk_start, return_aux=True)
+        logits = tied_logits(x, self.word_embeddings)
+        return (logits, aux) if return_aux else logits
 
 
 def masked_nll_sums(logits: torch.Tensor, labels: torch.Tensor,
@@ -569,10 +600,15 @@ def masked_nll_sums(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       loss_mask: torch.Tensor) -> torch.Tensor:
-    """Masked LM criterion: mean NLL over unmasked positions, fp32."""
+                       loss_mask: torch.Tensor,
+                       moe_aux: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Masked LM criterion: mean NLL over unmasked positions, fp32, plus
+    ``moe_aux`` (the MoE router loss of a training forward) when
+    given."""
     nll, msum = masked_nll_sums(logits, labels, loss_mask)
-    return nll / msum.clamp_min(1.0)
+    loss = nll / msum.clamp_min(1.0)
+    return loss if moe_aux is None else loss + moe_aux
 
 
 def _chunk_nll(h, word_emb, labels, loss_mask):
@@ -582,18 +618,21 @@ def _chunk_nll(h, word_emb, labels, loss_mask):
 def chunked_lm_loss(model: GPTForPretraining, input_ids: torch.Tensor,
                     labels: torch.Tensor, loss_mask: torch.Tensor,
                     chunks: int, position_ids=None,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None,
+                    include_moe_aux: bool = True) -> torch.Tensor:
     """The masked-CE loss with the LM head and softmax computed over
     ``chunks`` sequence chunks, each under activation checkpointing: the
     ``[b, s, V]`` logits never exist beyond ``[b, s / chunks, V]`` and
     the backward recomputes each chunk's logits. The NLL sums are exact,
     so without dropout this equals :func:`cross_entropy_loss` of the
-    full logits."""
+    full logits. An MoE model's router loss is added when
+    ``include_moe_aux`` (training), as in the JAX package."""
     b, s = input_ids.shape
     if s % chunks:
         raise ValueError(f"loss_chunks ({chunks}) must divide the sequence "
                          f"length ({s})")
-    h = model.gpt(input_ids, position_ids, dropout_seed=dropout_seed)
+    h, aux = model.gpt(input_ids, position_ids, dropout_seed=dropout_seed,
+                       return_aux=True)
     csz = s // chunks
     nll = msum = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(chunks):
@@ -606,15 +645,17 @@ def chunked_lm_loss(model: GPTForPretraining, input_ids: torch.Tensor,
         else:
             n, m = _chunk_nll(*args)
         nll, msum = nll + n, msum + m
-    return nll / msum.clamp_min(1.0)
+    loss = nll / msum.clamp_min(1.0)
+    return loss + aux if include_moe_aux and aux is not None else loss
 
 
 @torch.no_grad()
 def init_weights(model: GPTForPretraining, seed: int) -> None:
     """Random weights from ``seed``, drawn on the model's device with a
-    ``torch.Generator``: embeddings and dense kernels ~ N(0,
-    ``initializer_range``), biases 0, LayerNorm scale 1 and bias 0 (the
-    JAX package's initializers; the numbers differ)."""
+    ``torch.Generator``: embeddings, dense kernels and the MoE leaves
+    ``router_kernel`` / ``wi`` / ``wo`` ~ N(0, ``initializer_range``),
+    biases (``wi_bias`` and ``wo_bias`` too) 0, LayerNorm scale 1 and
+    bias 0 (the JAX package's initializers; the numbers differ)."""
     std = model.config.initializer_range
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))

@@ -42,7 +42,8 @@ class GPTModule(LanguageModule):
 
     def get_model(self):
         """``GPTForPretraining`` with fp32 master weights on the
-        module's device; pipeline parallelism, MoE and QAT raise."""
+        module's device (an MoE model when ``moe_num_experts > 0``);
+        pipeline parallelism and QAT raise."""
         dist = self.configs.get("Distributed") or {}
         if (dist.get("pp_degree") or 1) > 1:
             raise NotImplementedError(
@@ -63,7 +64,9 @@ class GPTModule(LanguageModule):
         position_ids, labels, loss_mask)`` on the model's device. With
         ``train`` and a dropout probability above 0, ``seed`` draws the
         dropout masks; otherwise the forward is deterministic. With
-        ``loss_chunks > 1`` the loss is chunked (``chunked_lm_loss``)."""
+        ``loss_chunks > 1`` the loss is chunked (``chunked_lm_loss``).
+        An MoE model's router loss is added for ``train`` only: the eval
+        loss is the pure cross-entropy, as in the JAX package."""
         tokens, position_ids, labels, loss_mask = batch
         cfg = self.model_config
         drop = train and (cfg.hidden_dropout_prob > 0.0 or
@@ -73,9 +76,11 @@ class GPTModule(LanguageModule):
             if cfg.loss_chunks > 1:
                 return chunked_lm_loss(model, tokens, labels, loss_mask,
                                        cfg.loss_chunks, position_ids,
-                                       dropout_seed)
-            logits = model(tokens, position_ids, dropout_seed=dropout_seed)
-            return cross_entropy_loss(logits, labels, loss_mask)
+                                       dropout_seed, include_moe_aux=train)
+            logits, aux = model(tokens, position_ids,
+                                dropout_seed=dropout_seed, return_aux=True)
+            return cross_entropy_loss(logits, labels, loss_mask,
+                                      aux if train else None)
 
     def input_spec(self):
         """``[((micro_batch, seq), "int64")] * 2``: tokens and

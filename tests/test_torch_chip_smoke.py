@@ -11,8 +11,10 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -21,6 +23,7 @@ import chip_smoke  # noqa: E402
 from _torch_parity import one_thread  # noqa: E402
 from paddlefleetx_tpu_torch.observability import metrics  # noqa: E402
 from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm  # noqa: E402
 from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm  # noqa: E402
 
 TINY = ["Model.num_layers=2", "Model.hidden_size=128",
@@ -43,6 +46,15 @@ def _counting(fn):
         return fn(*args, **kwargs)
     shim.launches = 0
     shim.launches_int8 = 0
+    return shim
+
+
+def _launching(plain, wrapper):
+    """``plain`` counting each run as a launch of ``wrapper``'s kernel."""
+    @functools.wraps(plain)
+    def shim(*args, **kwargs):
+        wrapper.launches += 1
+        return plain(*args, **kwargs)
     return shim
 
 
@@ -86,6 +98,11 @@ def shims(monkeypatch):
         qmm.quantized_matmul.launches += 1
         return qmm_plain(*args, **kwargs)
     monkeypatch.setattr(qmm, "quantized_matmul_reference", qmm_shim)
+    for name, wrapper in (("grouped_matmul_reference", gmm.grouped_matmul),
+                          ("grouped_matmul_dw_reference",
+                           gmm.grouped_matmul_dw)):
+        monkeypatch.setattr(gmm, name, _launching(getattr(gmm, name),
+                                                  wrapper))
     yield
     metrics.get_registry().reset()
     metrics.set_enabled(False)
@@ -180,6 +197,118 @@ def test_training_phases_run_at_tiny_size(shims, capsys):
     assert parity["worst_leaf_rel_diff"] <= parity["tol"]["grad_leaf_rel"] \
         < parity["planted_dq_worst_leaf_rel_diff"]
     assert lines["train_cli"]["bit_exact"]   # the CPU sums in one order
+
+
+#: the 8x345M MoE recipe cut to a tiny size (hidden 64, 4 experts)
+MOE_TINY = ["Model.num_layers=2", "Model.hidden_size=64",
+            "Model.num_attention_heads=1", "Model.ffn_hidden_size=128",
+            "Model.vocab_size=300", "Model.max_position_embeddings=64",
+            "Model.moe_num_experts=4", "Data.Train.dataset.max_seq_len=64",
+            "Data.Eval.dataset.max_seq_len=64", "Global.local_batch_size=4",
+            "Global.micro_batch_size=2"]
+#: the six expert-GEMM calls at a tiny size (K, N multiples of the
+#: 64-wide tiles the normwise check reads)
+GMM_TINY = (("fc1", 64, 128), ("fc2", 128, 64), ("fc1_dx", 128, 64),
+            ("fc2_dx", 64, 128), ("fc1_dw", 64, 128), ("fc2_dw", 128, 64))
+
+
+def test_moe_phases_run_at_tiny_size(shims, capsys):
+    """The MoE slice's phases as the chip run drives them, cut to a tiny
+    size: kernels 8 and 9 (their plain versions here) against the plain
+    versions with the planted empty groups exactly zero; the recipe's
+    training path (bf16, dropout, save_dots, sort_pallas, 2
+    microbatches) with kernel 8 at 4 and kernel 9 at 2 a layer and
+    microbatch and a falling loss; sort_pallas against sort in fp32 and
+    bf16; the kernels line's rows."""
+    cases = chip_smoke.phase_kernel_gmm("cpu", {"G": 8, "Gw": 4, "C": 16},
+                                        GMM_TINY)
+    assert [c["kernel"] for c in cases].count("grouped_matmul_dw") == 4
+    assert all(c["empty_exact_zero"] and c["live_groups"] == 5
+               for c in cases)
+    record, engine = chip_smoke.phase_train_moe("cpu", MOE_TINY, steps=20)
+    assert record["accumulate_steps"] == 2 and record["layers"] == 2
+    assert record["launches_per_step"]["grouped_matmul"] == 4 * 2 * 2
+    assert record["launches_per_step"]["grouped_matmul_dw"] == 2 * 2 * 2
+    assert record["mean_last5"] < record["mean_first5"]
+    assert record["mfu_top_k"] > record["mfu"] > 0
+    assert engine.module.model_config.dtype == "bfloat16"
+    assert engine.module.model_config.moe_dispatch == "sort_pallas"
+    parity = chip_smoke.phase_train_moe_parity("cpu", MOE_TINY)
+    for name in ("float32", "bfloat16"):
+        assert parity[name]["launches_kernels"] == {
+            "grouped_matmul": 8, "grouped_matmul_dw": 4}
+        assert parity[name]["launches_bmm"] == {
+            "grouped_matmul": 0, "grouped_matmul_dw": 0}
+    rows = chip_smoke.gmm_rows(cases, record)
+    assert [r["name"] for r in rows] == ["grouped_matmul",
+                                         "grouped_matmul_dw"]
+    for row in rows:
+        assert KERNEL_KEYS <= set(row)
+    assert rows[0]["launches"] == record["launches"]["grouped_matmul"]
+    phases = [d.get("phase") for d in _lines(capsys)]
+    for phase in ("kernel_gmm", "train_moe", "train_moe_parity"):
+        assert phase in phases
+
+
+def test_moe_count_check_catches_a_recompute():
+    """Kernel 8 at 6 a layer (save_dots recomputing the expert GEMMs), a
+    fallback counter, or a layer off sort_pallas fail the check."""
+    ok = {"grouped_matmul": 4 * 8, "grouped_matmul_dw": 2 * 8,
+          "flash_attention": 8, "flash_bwd_dkv": 8, "flash_bwd_dq": 8,
+          "counters": {"moe/sort_pallas": 16}}
+    chip_smoke.check_moe_counts(ok, 1, 4, 2, "t")
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.check_moe_counts(dict(ok, grouped_matmul=6 * 8), 1, 4,
+                                    2, "t")
+    for counters in ({"moe/sort_pallas": 16, "moe/fallback/pallas_rejected":
+                      1}, {"moe/sort_pallas": 4, "moe/sort": 12}):
+        with pytest.raises(AssertionError, match="counters"):
+            chip_smoke.check_moe_counts(dict(ok, counters=counters), 1, 4,
+                                        2, "t")
+
+
+def test_gmm_case_sees_skipped_padding_rows():
+    """A grouped GEMM that computed only the rows below each group's
+    count (zeros past it) fails the fc2 and fc2_dw checks, whose padding
+    rows are non-zero as the real fc2 input's are; the same GEMM passes
+    fc1, whose padding rows are zero."""
+    def rows_only(x, counts):
+        live = torch.arange(x.shape[1])[None, :, None] < \
+            counts[:, None, None].long()
+        return x * live
+    skip = types.SimpleNamespace(
+        grouped_matmul=lambda x, w, counts: gmm.grouped_matmul_reference(
+            rows_only(x, counts), w, counts),
+        grouped_matmul_dw=lambda x, dy, counts, gw:
+            gmm.grouped_matmul_dw_reference(rows_only(x, counts), dy,
+                                            counts, gw),
+        grouped_matmul_reference=gmm.grouped_matmul_reference,
+        grouped_matmul_dw_reference=gmm.grouped_matmul_dw_reference)
+    groups = {"G": 8, "Gw": 4, "C": 16}
+    chip_smoke.gmm_case(skip, torch, torch.float32, "fc1", 32, 64, 1,
+                        "cpu", groups)
+    for call, k, n in (("fc2", 64, 32), ("fc2_dw", 64, 32)):
+        with pytest.raises(AssertionError, match="disagrees"):
+            chip_smoke.gmm_case(skip, torch, torch.float32, call, k, n, 1,
+                                "cpu", groups)
+
+
+def test_gmm_bound():
+    """Live groups only: 2 of 4 groups live in expert 0 of 2 (rep 2);
+    bf16 kernel 8 reads their x and expert 0's weight, writes all four
+    outputs; kernel 9 writes the whole fp32 dw."""
+    ms, by = chip_smoke._gmm_bound("fwd", [3, 5, 0, 0], 2, 8, 16, 32, 2)
+    nbytes = 2 * 8 * 16 * 2 + 16 * 32 * 2 + 4 * 8 * 32 * 2 + 16
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    ms, by = chip_smoke._gmm_bound("dw", [1] * 16, 8, 320, 1024, 4096, 2)
+    nbytes = 16 * 320 * (1024 + 4096) * 2 + 8 * 1024 * 4096 * 4 + 64
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    ms, by = chip_smoke._gmm_bound("fwd", [1] * 16, 8, 320, 1024, 4096, 2)
+    assert by == "operations"
+    assert ms == pytest.approx(2.0 * 16 * 320 * 1024 * 4096 /
+                               chip_smoke.BF16_TENSOR_FLOPS * 1e3)
 
 
 def test_launch_check_catches_a_missing_kernel(shims):

@@ -61,11 +61,11 @@ def test_fp32_override_gives_fp32_compute():
 #: is named
 @pytest.mark.parametrize("knob", [
     {"kv_page_size": 128, "kv_pool_pages": 9, "kv_cache_dtype": "int8",
-     "moe_num_experts": 4},
+     "lora_num_adapters": 2},
     {"kv_cache_dtype": "int8", "context_parallel": True},
     {"quant_execution": "weight_only_int8", "fuse_attn_qkv": False},
     {"lora_rank": 4, "lora_num_adapters": 2},
-    {"moe_num_experts": 4},
+    {"context_parallel": True, "context_parallel_algo": "ulysses"},
     {"context_parallel": True},
     {"fuse_attn_qkv": False},
 ])
