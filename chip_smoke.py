@@ -59,6 +59,21 @@ with kernel 8 held to 768 and kernel 9 to 384 launches a step; one
 profiled MoE step; and ``sort_pallas`` held to ``sort`` (``torch.bmm``)
 at 2 layers in fp32 and bf16, refused with one expert's dw planted
 wrong.
+Then multi-tenant LoRA (``lora_rank`` 8, 5 bank rows): kernel 7's dx
+route (the int8 matmul's input gradient) at the four dense sites, M 16
+and 4096, bf16 and fp32, timed beside ``torch.matmul``; kernels 8 and 9
+at the banks' shapes (rank 8, C 16 and 4096, one group empty) beside
+``torch.bmm``, and the grouped delta beside the gather-einsum form; the
+headline trace through the paged server on adapter 0 and on four mixed
+adapters (``serve_lora``, the slice's main path: every bank through
+kernel 8, ``lora/fallback`` 0, the id-0 arm token-exact with the rank-0
+model on the same base weights); a profile of the mixed ticks; short
+arms under ``quant_execution`` with LoRA (kernels 5, 6a, 6b, 7, 8);
+mixed-adapter serving at 2 layers against a CPU copy and an eviction
+run (``parity_lora``); the gradient of every floating leaf over an int8
+base against a CPU copy, then one full-depth forward and backward
+(``grad_int8_lora``: kernels 1, 3, 4, 7, 7's dx route, 8, 9); and the
+frozen-base fine-tune, three steps through ``cli.train_main``.
 Each phase prints one JSON object per line;
 the ``kernels`` line and the card's name and power limit come before
 the last line, which is ``{"ok": true, "device": {...}}``. Any failure
@@ -795,15 +810,18 @@ def _qmm_bound(m, k, n, itemsize):
 
 def _tile_rel_l2(out, ref, tile=TILE):
     """The worst ``tile x tile`` output tile's ``||out - ref||_2 /
-    ||ref||_2`` of two ``[M, N]`` matrices (M padded to the tile)."""
+    ||ref||_2`` of two ``[M, N]`` matrices (M padded to the tile; an N
+    narrower than the tile, as a LoRA bank's rank, is one column of
+    tiles)."""
     import torch.nn.functional as F
     m, n = ref.shape
+    tn = min(tile, n)
     pad = (0, 0, 0, -m % tile)
     diff = F.pad(out.float() - ref.float(), pad)
     norm = F.pad(ref.float(), pad)
 
     def tiles(t):
-        return t.reshape(-1, tile, n // tile, tile).pow(2).sum(
+        return t.reshape(-1, tile, n // tn, tn).pow(2).sum(
             dim=(1, 3)).sqrt()
     return float((tiles(diff) / tiles(norm).clamp_min(1e-30)).max())
 
@@ -1392,6 +1410,7 @@ def reset_counts():
     fa.flash_attention_backward.launches_dkv = 0
     fa.flash_attention_backward.launches_dq = 0
     qmm.quantized_matmul.launches = 0
+    qmm.quantized_matmul.dx_launches = 0
     gmm.grouped_matmul.launches = 0
     gmm.grouped_matmul_dw.launches = 0
     metrics.set_enabled(True)
@@ -1400,8 +1419,8 @@ def reset_counts():
 
 def read_counts() -> dict:
     """Every kernel's launch count and the registry's ``attention/*``,
-    ``quant/*``, ``moe/*`` and ``serving/*`` counters, just after a
-    run."""
+    ``quant/*``, ``moe/*``, ``lora/*`` and ``serving/*`` counters, just
+    after a run."""
     from paddlefleetx_tpu_torch.observability import metrics
     from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
     from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
@@ -1411,11 +1430,12 @@ def read_counts() -> dict:
               "flash_bwd_dkv": fa.flash_attention_backward.launches_dkv,
               "flash_bwd_dq": fa.flash_attention_backward.launches_dq,
               "quantized_matmul": qmm.quantized_matmul.launches,
+              "quantized_matmul_dx": qmm.quantized_matmul.dx_launches,
               "grouped_matmul": gmm.grouped_matmul.launches,
               "grouped_matmul_dw": gmm.grouped_matmul_dw.launches,
               "counters": {k: v for k, v in sorted(counters.items())
                            if k.startswith(("attention/", "quant/", "moe/",
-                                            "serving/"))}}
+                                            "lora/", "serving/"))}}
     for name in DECODE_KERNELS:
         counts[name] = getattr(fa, name).launches
         counts[name + "_int8"] = getattr(fa, name).launches_int8
@@ -1658,14 +1678,17 @@ def phase_serve_cli(device="cuda", overrides=(), paged_spec=False,
               "quantized_matmul")}})
 
 
-def top2_gap(model, prompt, prefix):
+def top2_gap(model, prompt, prefix, adapter_row=None):
     """``(top-1 minus top-2 logit, max |logit|)`` of the next token
-    after ``prompt + prefix``, from one full forward."""
+    after ``prompt + prefix``, from one full forward (through LoRA bank
+    row ``adapter_row`` when given)."""
     import torch
     dev = model.word_embeddings.device
     ids = torch.as_tensor([list(prompt) + list(prefix)], device=dev)
+    rows = None if adapter_row is None else \
+        torch.tensor([adapter_row], device=dev)
     with torch.no_grad():
-        logits = model(ids)[0, -1].float()
+        logits = model(ids, adapter_ids=rows)[0, -1].float()
     top = torch.topk(logits, 2).values
     return float(top[0] - top[1]), float(logits.abs().max())
 
@@ -1679,11 +1702,13 @@ def _truncate(row, eos):
     return out
 
 
-def compare_rows(label, model, prompts, got, want, eos):
+def compare_rows(label, model, prompts, got, want, eos, rows=None,
+                 near=1e-4):
     """Hold token rows ``got`` to ``want`` (both cut after EOS). At the
     first mismatch of a row, print its position and the top-2 logit gap
-    there, and fail unless the gap is below 1e-4 of the logit scale (a
-    true near-tie, where rounding may pick either token)."""
+    there (request ``i`` through LoRA bank row ``rows[i]`` when given),
+    and fail unless the gap is below ``near`` of the logit scale (a true
+    near-tie, where rounding may pick either token)."""
     mismatches = []
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = _truncate(g, eos), _truncate(w, eos)
@@ -1691,11 +1716,12 @@ def compare_rows(label, model, prompts, got, want, eos):
             continue
         pos = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
                    min(len(g), len(w)))
-        gap, scale = top2_gap(model, prompts[i], w[:pos])
+        gap, scale = top2_gap(model, prompts[i], w[:pos],
+                              None if rows is None else rows[i])
         mismatches.append({"row": i, "position": pos, "top2_gap": gap,
                            "logit_scale": scale})
         emit({"phase": label, "mismatch": mismatches[-1]})
-        if gap >= 1e-4 * scale:
+        if gap >= near * scale:
             raise AssertionError(
                 f"{label}: row {i} differs at position {pos} where the "
                 f"top-2 logit gap {gap:.3e} is no near-tie (scale "
@@ -1798,10 +1824,11 @@ def headline_prompts(vocab, requests, lo, hi, seed):
     return [rng.integers(0, vocab - 2, int(n)).tolist() for n in lengths]
 
 
-def serving_module(device, overrides):
+def serving_module(device, overrides, state_dict=None):
     """``GPTGenerationModule`` on the generation recipe with the
     trace's generation knobs (EOS / pad the last vocab id, as the JAX
-    trace sets them) and ``overrides``."""
+    trace sets them) and ``overrides``, weights from ``state_dict`` or
+    ``Global.seed``."""
     from paddlefleetx_tpu_torch.models.gpt.modules import GPTGenerationModule
     from paddlefleetx_tpu_torch.utils.config import get_config
     cfg = get_config(CONFIG, list(overrides))
@@ -1809,7 +1836,8 @@ def serving_module(device, overrides):
     over = [f"Generation.eos_token_id={last}",
             f"Generation.pad_token_id={last}", "Generation.min_dec_len=0",
             *overrides]
-    return GPTGenerationModule(get_config(CONFIG, over), device=device)
+    return GPTGenerationModule(get_config(CONFIG, over),
+                               state_dict=state_dict, device=device)
 
 
 def _fallbacks(counters, allowed=()):
@@ -1903,14 +1931,19 @@ def check_int8_counts(counts, summary, layers, label, kernel, cfg):
 
 
 def serve_trace(module, label, device, spec=False, paged=True, slots=None,
-                pool_pages=None, requests=None, max_dec_len=None):
+                pool_pages=None, requests=None, max_dec_len=None,
+                adapters=None, warm=True):
     """The headline trace twice on fresh servers, warm then measured
     (the counts zeroed just before the measured ``run``, read just
     after); checks that every request finished with in-vocab tokens, that
     the drained pool is whole and, under the int8 knobs, that their
     kernels ran (:func:`check_int8_counts`). ``pool_pages``,
-    ``requests`` and ``max_dec_len`` replace the trace's. Returns the
-    measured record."""
+    ``requests`` and ``max_dec_len`` replace the trace's. ``adapters``,
+    ``(source, ids)``, serves request ``i`` through adapter ``ids[i %
+    len(ids)]`` (:func:`check_lora_counts`); ``warm`` False skips the
+    warm run, an int cuts it to that many requests of 8 new tokens.
+    Returns the measured record, with the completions' tokens added
+    after it is printed."""
     import dataclasses
     import torch
     from paddlefleetx_tpu_torch.core.serving import GenerationServer
@@ -1927,13 +1960,22 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
               prefill_chunk_pages=hl["prefill_chunk_pages"]) if paged else {}
     prompts = headline_prompts(cfg.vocab_size, requests or hl["requests"],
                                hl["lo"], hl["hi"], hl["seed"])
-    GenerationServer(module.model, gcfg, num_slots=slots, seed=module.seed,
-                     **kw).run(prompts)
+    ids = None
+    if adapters is not None:
+        kw["adapter_source"] = adapters[0]
+        ids = [adapters[1][i % len(adapters[1])] for i in range(len(prompts))]
+    if warm:
+        n = len(prompts) if warm is True else warm
+        wcfg = gcfg if warm is True else dataclasses.replace(gcfg,
+                                                              max_dec_len=8)
+        GenerationServer(module.model, wcfg, num_slots=slots,
+                         seed=module.seed, **kw).run(
+            prompts[:n], ids and ids[:n])
     server = GenerationServer(module.model, gcfg, num_slots=slots,
                               seed=module.seed, **kw)
     reset_counts()
     t0 = time.perf_counter()
-    completions = server.run(prompts)
+    completions = server.run(prompts, ids)
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1964,6 +2006,9 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
     if int8 or cfg.quant_execution != "off":
         check_int8_counts(counts, summary, cfg.num_layers, label, kernel,
                           cfg)
+    if adapters is not None:
+        check_lora_counts(counts, cfg.num_layers, server_forwards(summary),
+                          label)
     generated = sum(len(c.tokens) for c in completions)
     record = {
         "phase": label, "model": "GPT-345M", "dtype": cfg.dtype,
@@ -1986,17 +2031,24 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
                                        "flash_attention":
                                        counts["flash_attention"],
                                        "quantized_matmul":
-                                       counts["quantized_matmul"]},
+                                       counts["quantized_matmul"],
+                                       "grouped_matmul":
+                                       counts["grouped_matmul"]},
         "forwards": server_forwards(summary),
         "counters": counts["counters"]}
     for key in ("prefill_chunks", "prefix_hits", "prompt_hits", "cow_splits",
                 "preempted", "pages_in_use", "pool_pages", "pool_bytes",
-                "spec_drafted", "spec_accepted", "spec_accept_rate"):
+                "spec_drafted", "spec_accepted", "spec_accept_rate",
+                "adapter_rows", "adapters_resident", "adapter_hits",
+                "adapter_misses", "adapter_evictions"):
         if key in summary:
             record[key] = summary[key]
+    if ids is not None:
+        record["adapter_ids"] = sorted(set(ids))
     if device != "cpu":
         record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     emit(record)
+    record["tokens"] = [c.tokens for c in completions]
     return record
 
 
@@ -2975,11 +3027,707 @@ def phase_train_moe_parity(device="cuda", overrides=(), batch=2,
     return record
 
 
-def gmm_rows(cases, train_moe) -> list:
+# -- LoRA: kernel 7's dx route, kernel 8 at the bank shapes, serving ----
+
+#: M of kernel 7's dx route: a 16-row batch and the gradient phase's 4 x
+#: 1024 tokens
+QMM_DX_ROWS = (16, 4096)
+
+
+def _qmm_dx_bound(m, k, n, itemsize):
+    """(bound_ms, bound_by) of one dx call ``gs [M, N] @ w [N, K]``:
+    gs, the int8 weight and dx moved once over HBM, against 2 M N K
+    FLOPs over the peak for gs's type."""
+    nbytes = m * n * itemsize + n * k + m * k * itemsize
+    flops = 2.0 * m * k * n
+    peak = BF16_TENSOR_FLOPS if itemsize == 2 else FP32_CUDA_CORE_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def qmm_dx_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
+    """Kernel 7's dx route at a dense site (forward ``[M, K] @ w [N,
+    K]^T``): ``dx = gs [M, N] @ w [N, K]`` against its plain version
+    (fp32, the same inputs) by max abs error and per 64 x 64 output tile
+    normwise, with a planted fault; the call counts one dx launch and no
+    forward launch. Timed with its plain version and the library
+    yardstick ``torch.matmul(gs, w.to(dtype))`` (the weight widened
+    beforehand), over input sets whose weights exceed the L2 cache at
+    small M. On the CPU the wrapper runs its plain version and nothing
+    is timed."""
+    import math
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_sets = 1 if device == "cpu" or m > 256 else \
+        max(4, math.ceil(QMM_COLD_BYTES / (k * n)))
+    # int8 uniform in [-127, 127] has std 73.6: dx of std ~0.5
+    unit = 0.5 / (73.6 * n ** 0.5)
+    sets = []
+    for _ in range(n_sets):
+        gs = (torch.randn((m, n), generator=g, device=device) * unit).to(
+            dtype)
+        w = torch.randint(-127, 128, (n, k), generator=g, device=device,
+                          dtype=torch.int8)
+        sets.append((gs, w))
+    gs, w = sets[0]
+    before = (qmm.quantized_matmul.launches, qmm.quantized_matmul.dx_launches)
+    out = qmm.quantized_matmul_dx(gs, w)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        if (qmm.quantized_matmul.launches,
+                qmm.quantized_matmul.dx_launches) != (before[0],
+                                                      before[1] + 1):
+            raise AssertionError("quantized_matmul_dx: the call did not "
+                                 "count one dx launch")
+    ref = qmm.quantized_matmul_dx_reference(gs.float(), w)
+    err = _max_err(out, ref)
+    name = _dtype_name(dtype)
+    tol = TOL_QMM[name]
+    what = f"quantized_matmul_dx ({name}, {site}, M={m}, K={k}, N={n})"
+    if out.shape != (m, k) or out.dtype != dtype or \
+            not torch.isfinite(out.float()).all() or err > tol:
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"max abs err {err:.3e} > {tol:.0e}")
+    rel_l2, planted = _hold_tiles(out, ref, what)
+    ms = call_ms = plain_ms = library_ms = None
+    if device != "cpu":
+        ms, call_ms = time_ms(lambda i: qmm.quantized_matmul_dx(*sets[i]),
+                              n_sets)
+        plain_ms, _ = time_ms(lambda i: qmm.quantized_matmul_dx_reference(
+            *sets[i]), n_sets, iters=5)
+        wide = [(a, b.to(dtype)) for a, b in sets]
+        library_ms, _ = time_ms(lambda i: torch.matmul(*wide[i]), n_sets)
+        del wide
+    bound_ms, bound_by = _qmm_dx_bound(m, k, n, gs.element_size())
+    return {"dtype": name, "site": site, "M": m, "K": k, "N": n,
+            "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
+            "rel_l2_planted": planted, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_computes": "torch.matmul(gs, w.to(dtype)) on the "
+            "weight widened beforehand (cuBLAS)", "bound_ms": bound_ms,
+            "bound_by": bound_by, "weight_sets": n_sets}
+
+
+def phase_kernel_qmm_dx(device="cuda", rows=QMM_DX_ROWS, sites=QMM_SITES):
+    """Kernel 7's dx route at the four 345M site shapes x ``rows``, bf16
+    and fp32; returns the cases, led by the gradient phase's (bf16,
+    M 4096, qkv)."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
+    cases = []
+    seed = 1200
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in sorted(rows, reverse=True):
+            for site, k, n in sites:
+                cases.append(qmm_dx_case(qmm, torch, dtype, site, m, k, n,
+                                         seed, device))
+                seed += 1
+                if device != "cpu":
+                    torch.cuda.empty_cache()
+    for c in cases:
+        emit({"phase": "kernel_qmm_dx", **c})
+    return cases
+
+
+#: the LoRA knobs of this slice: rank 8 (the JAX bench's default) and 5
+#: bank rows (row 0 the base model, 4 live adapters)
+LORA_KNOBS = ("Model.lora_rank=8", "Model.lora_num_adapters=5")
+#: C of the grouped buffer: a 16-slot decode tick, and the gradient
+#: phase's 4 x 1024 rows (C = M rounded up to 8)
+LORA_C = (16, 4096)
+#: the bank group the kernel cases leave empty
+LORA_EMPTY = (2,)
+#: the banks' rank (``LORA_KNOBS``)
+LORA_RANK = 8
+#: requests of ``serve_lora``'s warm run
+LORA_WARM = 4
+
+
+def lora_calls(sites=QMM_SITES, r=LORA_RANK):
+    """``(call, K, N)`` of kernel 8 at every site's bank pair: ``x @ A``
+    (``[5, C, K] @ [5, K, r]``) and ``(xA) @ B`` (``[5, C, r] @ [5, r,
+    N]``); the banks' dw are the same calls with ``_dw``."""
+    calls = []
+    for site, k, n in sites:
+        calls += [(f"{site}_down", k, r), (f"{site}_up", r, n)]
+    return calls
+
+
+def lora_source(model, seed, std=0.02):
+    """Adapter id -> a canonical tree shaped like ``model``'s banks,
+    ``normal(0, std)`` from ``numpy.random.default_rng(seed + id)``
+    (fp32, cast to the bank's dtype on insert)."""
+    import numpy as np
+    from paddlefleetx_tpu_torch.core.adapters import extract_adapter
+    shapes = {k: tuple(v.shape) for k, v in
+              extract_adapter(model, 0).items()}
+
+    def source(aid):
+        rng = np.random.default_rng(seed + int(aid))
+        return {k: rng.normal(0.0, std, s).astype(np.float32)
+                for k, s in shapes.items()}
+    return source
+
+
+def phase_kernel_gmm_lora(device="cuda", cs=LORA_C, calls=None, bank=5):
+    """Kernel 8 at the LoRA bank shapes (``bank`` groups, rank 8, every
+    site's ``x @ A`` and ``(xA) @ B``, C 16 and 4096, group 2 empty) in
+    bf16 (fp32 at C 16 for the qkv pair) and kernel 9 at the banks' dw
+    (C 4096), against their plain versions (:func:`gmm_case`), timed
+    beside ``torch.bmm`` on the same buffer; then each site's whole
+    grouped delta (``ops/lora.py``: sort, scatter, two kernel-8 calls,
+    gather) beside the gather-einsum form on the same rows and banks.
+    Returns ``(cases, deltas)``, led by the decode tick's bf16 qkv
+    ``x @ A``."""
+    import torch
+    from paddlefleetx_tpu_torch.ops import lora
+    from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
+    calls = calls or lora_calls()
+    cases = []
+    seed = 1300
+    for c in sorted(cs):
+        groups = {"G": bank, "Gw": bank, "C": c}
+        todo = [(torch.bfloat16, call) for call in calls]
+        if c == max(cs):
+            todo += [(torch.bfloat16, (f"{call}_dw", k, n))
+                     for call, k, n in calls]
+        else:
+            todo += [(torch.float32, call) for call in calls[:2]]
+        for dtype, (call, k, n) in todo:
+            cases.append(gmm_case(gmm, torch, dtype, call, k, n, seed,
+                                  device, groups, LORA_EMPTY))
+            cases[-1]["lora"] = True
+            seed += 1
+            if device != "cpu":
+                torch.cuda.empty_cache()
+    for case in cases:
+        emit({"phase": "kernel_gmm_lora", **case})
+    deltas = []
+    g = torch.Generator(device=device).manual_seed(seed)
+    for c in sorted(cs):
+        for site, k, n in QMM_SITES:
+            x = torch.randn((c, k), generator=g, device=device).to(
+                torch.bfloat16)
+            ids = torch.randint(0, bank, (c,), generator=g, device=device)
+            ids[ids == LORA_EMPTY[0]] = 0
+            a = (torch.randn((bank, k, LORA_RANK), generator=g,
+                             device=device) * k ** -0.5).to(torch.bfloat16)
+            b = (torch.randn((bank, LORA_RANK, n), generator=g,
+                             device=device) * 0.1).to(torch.bfloat16)
+            out = lora.grouped_lora_delta(x, ids, a, b)
+            ref = lora.fallback_lora_delta(x.float(), ids, a.float(),
+                                           b.float())
+            err = _max_err(out, ref)
+            if err > TOL_GMM["bfloat16"]:
+                raise AssertionError(f"grouped_lora_delta ({site}, C={c}) "
+                                     f"disagrees with the gather-einsum "
+                                     f"form: {err:.3e}")
+            rec = {"site": site, "C": c, "K": k, "N": n, "rank": LORA_RANK,
+                   "bank": bank, "max_abs_err": err, "pair_ms": None,
+                   "gather_einsum_ms": None}
+            if device != "cpu":
+                rec["pair_ms"] = time_ms(lambda i: lora.grouped_lora_delta(
+                    x, ids, a, b), 1)[0]
+                rec["gather_einsum_ms"] = time_ms(
+                    lambda i: lora.fallback_lora_delta(x, ids, a, b), 1)[0]
+            deltas.append(rec)
+            emit({"phase": "kernel_gmm_lora_delta", **rec})
+    return cases, deltas
+
+
+def check_lora_counts(counts, layers, forwards, label):
+    """With adapter ids every forward ran the grouped delta at the four
+    sites of every layer (``lora/grouped``), each two kernel-8 launches,
+    and the gather-einsum form never ran."""
+    c = counts["counters"]
+    want = 4 * layers * forwards
+    if not c.get("lora/grouped", 0) == want > 0 or \
+            counts["grouped_matmul"] != 2 * want or \
+            c.get("lora/fallback", 0):
+        raise AssertionError(
+            f"{label}: lora/grouped {c.get('lora/grouped')}, kernel 8 "
+            f"launched {counts['grouped_matmul']}, lora/fallback "
+            f"{c.get('lora/fallback', 0)}; expected {want} (4 sites x "
+            f"{layers} layers x {forwards} forwards) and {2 * want}")
+
+
+def phase_serve_lora(device="cuda", overrides=(), requests=None):
+    """The main path of the slice: GPT-345M with ``lora_rank`` 8 and 5
+    bank rows serving the headline trace through the paged server
+    (:func:`serve_trace`), as the JAX bench's A/B does: every request on
+    adapter 0, then ids ``(i % 4) + 1`` with adapters ``normal(0,
+    0.02)`` seeded by ``Global.seed + id``, the counts zeroed just before
+    each measured run (:func:`check_lora_counts`). The id-0 arm must be
+    token-exact with the same trace on the same base weights with
+    ``lora_rank`` 0, and the mixed arm must differ from it somewhere.
+    Returns ``(record, module)``."""
+    import dataclasses
+    import torch
+    hl = HEADLINE
+    module = serving_module(device, [
+        *LORA_KNOBS, f"Generation.max_dec_len={hl['max_dec_len']}",
+        *overrides])
+    cfg = module.model_config
+    source = lora_source(module.model, module.seed)
+    kw = {"requests": requests} if requests else {}
+    # a short warm run (every code path, the decode tick's shapes): a
+    # LoRA tick is host-bound, and a whole warm trace would cost as much
+    # as a measured arm; the mixed arm follows the id-0 arm warm
+    base_arm = serve_trace(module, "serve_lora_id0", device,
+                           adapters=(source, [0]), warm=LORA_WARM, **kw)
+    mixed = serve_trace(module, "serve_lora_mixed", device,
+                        adapters=(source, [1, 2, 3, 4]), warm=False, **kw)
+    base_sd = {k: v for k, v in module.model.state_dict().items()
+               if "_lora." not in k}
+    plain = serving_module(device, [
+        f"Generation.max_dec_len={hl['max_dec_len']}", *overrides],
+        state_dict=base_sd)
+    del base_sd
+    if dataclasses.replace(cfg, lora_rank=0, lora_num_adapters=0) != \
+            plain.model_config:
+        raise AssertionError("serve_lora: the rank-0 twin's config differs")
+    rank0 = serve_trace(plain, "serve_lora_rank0", device, warm=False, **kw)
+    del plain
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    if base_arm["tokens"] != rank0["tokens"]:
+        raise AssertionError("serve_lora: the id-0 arm is not token-exact "
+                             "with the rank-0 model on the same base "
+                             "weights")
+    differ = sum(a != b for a, b in zip(mixed["tokens"], base_arm["tokens"]))
+    if not differ:
+        raise AssertionError("serve_lora: no request of the mixed arm "
+                             "differs from the id-0 arm")
+    record = {"phase": "serve_lora", "lora_rank": cfg.lora_rank,
+              "bank_rows": cfg.lora_num_adapters, "adapter_std": 0.02,
+              "id0_token_exact_with_rank0": True,
+              "mixed_requests_differing": differ,
+              "adapter_slowdown": base_arm["decode_tokens_per_s"] /
+              mixed["decode_tokens_per_s"]}
+    for name, arm in (("id0", base_arm), ("mixed", mixed), ("rank0", rank0)):
+        for key in ("decode_tokens_per_s", "e2e_tokens_per_s",
+                    "tick_p50_ms", "tick_p99_ms", "ttft_p50_ms",
+                    "ttft_p99_ms", "decode_ticks", "forwards"):
+            record[f"{key}_{name}"] = arm.get(key)
+        if name != "rank0":
+            c = arm["counters"]
+            record[f"lora_grouped_{name}"] = c.get("lora/grouped", 0)
+            record[f"lora_fallback_{name}"] = c.get("lora/fallback", 0)
+            record[f"kernel8_launches_{name}"] = \
+                arm["launches"]["grouped_matmul"]
+            record[f"kernel8_per_tick_{name}"] = \
+                arm["launches"]["grouped_matmul"] / arm["forwards"]
+            for key in ("adapter_rows", "adapters_resident", "adapter_hits",
+                        "adapter_misses", "adapter_evictions"):
+                record[f"{key}_{name}"] = arm.get(key)
+    emit(record)
+    record["arms"] = {"id0": base_arm, "mixed": mixed}
+    return record, module
+
+
+def phase_profile_lora(module, ticks=16):
+    """Where a mixed-adapter paged tick's time goes: the headline server
+    with ``adapter_source`` fed its first 16 prompts on ids ``(i % 4) +
+    1``, stepped until every slot decodes, then ``ticks`` steps under
+    ``torch.profiler`` (kernel time by category, idle share)."""
+    import torch
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    hl = HEADLINE
+    cfg = module.model_config
+    prompts = headline_prompts(cfg.vocab_size, hl["requests"], hl["lo"],
+                               hl["hi"], hl["seed"])[:hl["slots"]]
+    server = GenerationServer(
+        module.model, module.generation_cfg, num_slots=hl["slots"],
+        seed=module.seed, page_size=hl["page"], pool_pages=hl["pool_pages"],
+        prefill_chunk_pages=hl["prefill_chunk_pages"],
+        adapter_source=lora_source(module.model, module.seed))
+    for i, p in enumerate(prompts):
+        server.submit(p, adapter_id=i % 4 + 1)
+    while server.pending or server._prefilling:
+        server.step()
+
+    def run():
+        for _ in range(ticks):
+            server.step()
+    window = profile_window(torch, "decode_paged_lora", run, ticks)
+    window["occupancy"] = server.occupancy
+    emit({"phase": "profile_lora", "slots": hl["slots"],
+          "windows": [window]})
+    return window
+
+
+#: the short arms of ``serve_lora_int8``
+LORA_INT8_SHORT = {"requests": 8, "max_dec_len": 32}
+
+
+def phase_serve_lora_int8(device="cuda", overrides=(),
+                          short=LORA_INT8_SHORT):
+    """``quant_execution: weight_only_int8`` and LoRA together, mixed
+    adapters on ``short`` arms: contiguous speculative (kernel 5), paged
+    (6a) and paged speculative (6b), each with kernel 7 at every dense
+    site and kernel 8 at every bank (:func:`check_int8_counts`,
+    :func:`check_lora_counts`). Returns the records by arm."""
+    hl = HEADLINE
+    module = serving_module(device, [
+        INT8_KNOBS[1], *LORA_KNOBS,
+        f"Generation.max_dec_len={hl['max_dec_len']}", *overrides])
+    adapters = (lora_source(module.model, module.seed), [1, 2, 3, 4, 0])
+    runs = {
+        "contiguous_spec": serve_trace(
+            module, "serve_lora_int8", device, spec=True, paged=False,
+            slots=hl["contiguous_spec_slots"], adapters=adapters, **short),
+        "paged": serve_trace(module, "serve_lora_int8", device,
+                             adapters=adapters, **short),
+        "paged_spec": serve_trace(module, "serve_lora_int8", device,
+                                  spec=True, adapters=adapters, **short)}
+    del module
+    return runs
+
+
+def phase_parity_lora(device="cuda", overrides=(), requests=6,
+                      max_dec_len=24, hi=200):
+    """Mixed-adapter greedy serving at full width cut to 2 layers: the
+    paged server on the card against the same server on a CPU copy of
+    the model (plain versions everywhere), token for token in fp32 (a
+    mismatch only at a true near-tie); in bf16 each row's first
+    divergence must sit at a near-tie of the bf16 logits (2e-2 of their
+    scale). Then, in fp32, a bank of 3 usable rows for 4 adapters
+    evicts and completes every request with the tokens of a bank that
+    holds them all."""
+    import dataclasses
+    import torch
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.models.gpt.model import build_model
+    hl = HEADLINE
+    ids = [i % 4 + 1 if i % 3 else 0 for i in range(requests)]
+    paged = dict(page_size=hl["page"],
+                 prefill_chunk_pages=hl["prefill_chunk_pages"])
+    records = []
+    for dtype_over in (["Engine.mix_precision.use_pure_fp16=False"], []):
+        module = serving_module(device, [
+            *dtype_over, *LORA_KNOBS, "Model.num_layers=2",
+            "Generation.decode_strategy=greedy_search",
+            f"Generation.max_dec_len={max_dec_len}", *overrides])
+        cfg, gcfg, model = module.model_config, module.generation_cfg, \
+            module.model
+        prompts = headline_prompts(cfg.vocab_size, requests, hl["lo"], hi,
+                                   41)
+        source = lora_source(model, module.seed, std=0.05)
+        eos = gcfg.eos_token_id
+        srv = GenerationServer(model, gcfg, num_slots=4,
+                               adapter_source=source, **paged)
+        reset_counts()
+        got = [c.tokens for c in srv.run(prompts, ids)]
+        counts = read_counts()
+        check_lora_counts(counts, cfg.num_layers,
+                          server_forwards(srv.summary()), "parity_lora")
+        cpu = build_model(cfg, torch.device("cpu"), state_dict={
+            k: v.cpu() for k, v in model.state_dict().items()})
+        want = [c.tokens for c in GenerationServer(
+            cpu, gcfg, num_slots=4, adapter_source=source, **paged).run(
+                prompts, ids)]
+        del cpu
+        record = {"phase": "parity_lora", "dtype": cfg.dtype,
+                  "layers": cfg.num_layers, "requests": requests,
+                  "adapter_ids": ids, "max_dec_len": max_dec_len,
+                  "rows_equal": _first_divergence(got, want, eos)[0],
+                  "first_divergence": _first_divergence(got, want, eos)[1]}
+        # each request's bank row on the card (no eviction in this run)
+        rows = [srv._adapters._rows[a] if a else 0 for a in ids]
+        near = 1e-4 if cfg.dtype == "float32" else TOL["bfloat16"]
+        record["near_ties"] = len(compare_rows(
+            f"parity_lora_{cfg.dtype}", model, prompts, got, want, eos,
+            rows, near))
+        if cfg.dtype == "float32":
+            base = {k: v for k, v in model.state_dict().items()
+                    if "_lora." not in k}
+            out = {}
+            for name, bank in (("pressure", 4), ("roomy", 5)):
+                m = build_model(dataclasses.replace(
+                    cfg, lora_num_adapters=bank), torch.device(device))
+                m.load_state_dict(base, strict=False)
+                s = GenerationServer(m, gcfg, num_slots=2,
+                                     adapter_source=source, **paged)
+                comps = s.run(prompts, [i % 4 + 1 for i in range(requests)])
+                out[name] = ([c.tokens for c in comps], s.summary(),
+                             [c.finish_reason for c in comps])
+                s._adapters.check()
+                del m, s
+            ev = out["pressure"][1]["adapter_evictions"]
+            record.update(eviction_adapters=4, eviction_rows=3,
+                          evictions=ev,
+                          eviction_tokens_equal=out["pressure"][0] ==
+                          out["roomy"][0])
+            if ev == 0 or not record["eviction_tokens_equal"] or \
+                    not set(out["pressure"][2]) <= {"eos", "length"}:
+                emit(record)
+                raise AssertionError(f"parity_lora: the eviction run "
+                                     f"({ev} evictions) does not hold")
+        emit(record)
+        records.append(record)
+        del module, model, srv
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return records
+
+
+#: the gradient phase's limits against the CPU copy (plain versions):
+#: loss relative and each floating leaf normwise; fp32 sums in another
+#: order, bf16 on the card against the fp32 copy of the same weights
+GRAD_LORA_TOL = {"float32": {"loss_rel": 1e-5, "grad_leaf_rel": 1e-4},
+                 "bfloat16": {"loss_rel": 5e-3, "grad_leaf_rel": 5e-2}}
+#: per layer of one forward and backward with adapter ids over an int8
+#: base: kernel 7 forward and dx at the four sites, kernel 8 four times a
+#: site (two bank GEMMs and their dx), kernel 9 twice a site, and the
+#: attention kernels once each
+GRAD_LORA_PER_LAYER = {"quantized_matmul": 4, "quantized_matmul_dx": 4,
+                       "grouped_matmul": 16, "grouped_matmul_dw": 8,
+                       "flash_attention": 1, "flash_bwd_dkv": 1,
+                       "flash_bwd_dq": 1}
+
+
+def _grad_lora_batch(vocab, batch, seq, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (batch, seq + 1))
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def _lora_loss_and_grads(model, ids, labels, rows):
+    """The mean LM loss of ``model`` on ``ids`` through bank rows
+    ``rows`` and every parameter's gradient, left zeroed."""
+    import torch
+    from paddlefleetx_tpu_torch.models.gpt.model import cross_entropy_loss
+    dev = model.word_embeddings.device
+    ids, labels = (torch.as_tensor(t, device=dev) for t in (ids, labels))
+    logits = model(ids, adapter_ids=torch.as_tensor(rows, device=dev))
+    loss = cross_entropy_loss(logits, labels,
+                              torch.ones(labels.shape, device=dev))
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _int8_lora_module(device, overrides):
+    """A serving module under ``quant_execution: weight_only_int8`` with
+    the LoRA knobs, bank rows 1..4 filled with adapters ``normal(0,
+    0.05)``, and without the recipe's ``use_recompute``: kernel 7 is no
+    dispatched op, so ``save_dots`` cannot keep its output and a
+    recompute would launch it again in the backward."""
+    from paddlefleetx_tpu_torch.core.adapters import insert_adapter
+    module = serving_module(device, [INT8_KNOBS[1], *LORA_KNOBS,
+                                     "Model.use_recompute=False", *overrides])
+    source = lora_source(module.model, module.seed, std=0.05)
+    for row in range(1, module.model_config.lora_num_adapters):
+        insert_adapter(module.model, source(row), row)
+    return module
+
+
+def phase_grad_int8_lora(device="cuda", overrides=(), batch=2, seq=256,
+                         full=(4, 1024), data_seed=61):
+    """The gradient over an int8 base with mixed adapter ids, what
+    ``jax.grad`` over the floating leaves gives in the JAX package: at
+    full width cut to 2 layers, fp32 and bf16, ``batch x seq`` tokens,
+    the loss and the gradient of every floating leaf (banks, biases,
+    norms, embeddings) on the card (kernels 1, 3, 4, 7, 7's dx route, 8,
+    9; :data:`GRAD_LORA_PER_LAYER`) against a CPU copy (plain versions,
+    fp32), within :data:`GRAD_LORA_TOL`; then at full depth, bf16, one
+    forward and backward at ``full`` tokens, timed, with its launches
+    counted from zero. Returns the record."""
+    import dataclasses
+    import torch
+    from paddlefleetx_tpu_torch.models.gpt.model import build_model
+    record = {"phase": "grad_int8_lora", "batch": batch, "seq": seq,
+              "tol": GRAD_LORA_TOL}
+    for name, dtype_over in (("float32",
+                              ["Engine.mix_precision.use_pure_fp16=False"]),
+                             ("bfloat16", [])):
+        module = _int8_lora_module(device, [*dtype_over, "Model.num_layers=2",
+                                            *overrides])
+        cfg, model = module.model_config, module.model
+        ids, labels = _grad_lora_batch(cfg.vocab_size, batch, seq, data_seed)
+        rows = [i % (cfg.lora_num_adapters - 1) + 1 for i in range(batch)]
+        if device != "cpu":
+            torch.cuda.synchronize()
+        reset_counts()
+        loss, grads = _lora_loss_and_grads(model, ids, labels, rows)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: v * cfg.num_layers for k, v in GRAD_LORA_PER_LAYER.items()}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"grad_int8_lora: {name} launched {got}, "
+                                 f"expected {want}")
+        cpu = build_model(dataclasses.replace(cfg, dtype="float32"),
+                          torch.device("cpu"), state_dict={
+                              k: (v.float() if v.is_floating_point()
+                                  else v).cpu()
+                              for k, v in model.state_dict().items()})
+        ref_loss, ref = _lora_loss_and_grads(cpu, ids, labels, rows)
+        del cpu
+        leaf, leaf_rel = _leaf_diff({k: v.cpu() for k, v in grads.items()},
+                                    ref)
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        tol = GRAD_LORA_TOL[name]
+        record[name] = {"loss": loss, "loss_cpu": ref_loss,
+                        "loss_rel_diff": loss_rel, "worst_leaf": leaf,
+                        "worst_leaf_rel_diff": leaf_rel, "leaves": len(ref),
+                        "launches": got}
+        if not loss == loss or loss_rel > tol["loss_rel"] or \
+                leaf_rel > tol["grad_leaf_rel"]:
+            emit(record)
+            raise AssertionError(f"grad_int8_lora: {name} loss rel diff "
+                                 f"{loss_rel:.2e}, worst leaf {leaf} "
+                                 f"{leaf_rel:.2e} (tol {tol})")
+        del module, model, grads, ref
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    module = _int8_lora_module(device, overrides)
+    cfg, model = module.model_config, module.model
+    b, s = full
+    ids, labels = _grad_lora_batch(cfg.vocab_size, b, s, data_seed + 1)
+    rows = [i % (cfg.lora_num_adapters - 1) + 1 for i in range(b)]
+    _lora_loss_and_grads(model, ids, labels, rows)          # warm
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = _lora_loss_and_grads(model, ids, labels, rows)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: v * cfg.num_layers for k, v in GRAD_LORA_PER_LAYER.items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"grad_int8_lora: full-depth pass launched "
+                             f"{got}, expected {want}")
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    if not loss == loss or not finite:
+        raise AssertionError(f"grad_int8_lora: 24-layer loss {loss}, "
+                             f"finite grads {finite}")
+    record["full"] = {"dtype": cfg.dtype, "layers": cfg.num_layers,
+                      "batch": b, "seq": s, "loss": loss,
+                      "fwd_bwd_s": wall, "launches": got,
+                      "counters": counts["counters"]}
+    if device != "cpu":
+        record["full"]["peak_mem_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(record)
+    del module, model, grads
+    return record
+
+
+def phase_finetune_lora(device="cuda", overrides=(), steps=3):
+    """The frozen-base fine-tune: the 345M recipe with ``lora_rank`` 8
+    and 2 bank rows, ``steps`` steps through ``cli.train_main``. The base
+    parameters must be bit-equal before and after, optimizer state must
+    exist for the ``*_lora`` banks alone, and the loss finite. The
+    training forward passes no adapter ids (as the JAX engine's), so
+    ``lora_b`` stays 0 and only weight decay moves ``lora_a``: both are
+    printed. Returns the record."""
+    import torch
+    from paddlefleetx_tpu_torch import cli
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTModule
+    tmp = tempfile.mkdtemp(prefix="pfx_lora_")
+    try:
+        over = [f"Engine.max_steps={steps}", "Engine.logging_freq=1",
+                "Engine.eval_freq=1000000", "Engine.eval_iters=1",
+                "Engine.save_load.save_steps=1000000", *TRAIN_LR,
+                "Model.lora_rank=8", "Model.lora_num_adapters=2",
+                *overrides]
+        cfg = write_train_corpus(os.path.join(tmp, "data"), over, steps)
+        init = GPTModule(cfg, device=device).model.state_dict()
+        before = {k: v.detach().cpu().clone() for k, v in init.items()}
+        del init
+        argv = train_argv(os.path.join(tmp, "data"),
+                          os.path.join(tmp, "out"), over, device)
+        reset_counts()
+        engine = cli.train_main(argv)
+        counts = read_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = {k: v.detach().cpu() for k, v in engine.model.state_dict().items()}
+    base_moved = [k for k in before if "_lora." not in k and
+                  not torch.equal(before[k], after[k])]
+    names = {id(p): n for n, p in engine.model.named_parameters()}
+    state = engine.optimizer.state_dict()["state"]
+    stateful = [names[id(p)] for p in engine.optimizer.params]
+    losses = [h["loss"] for h in engine.history]
+    lora_b = max(float(after[k].abs().max()) for k in after
+                 if k.endswith("lora_b"))
+    lora_a = {k: float(after[k].norm() / before[k].norm()) for k in after
+              if k.endswith("lora_a")}
+    record = {"phase": "finetune_lora", "steps": steps,
+              "lora_rank": engine.module.model_config.lora_rank,
+              "bank_rows": engine.module.model_config.lora_num_adapters,
+              "losses": losses, "grad_norms": [h["grad_norm"]
+                                               for h in engine.history],
+              "base_bit_equal": not base_moved,
+              "trained_params": len(stateful), "state_entries": len(state),
+              "lora_b_max_abs": lora_b,
+              "lora_a_norm_ratio_min": min(lora_a.values()),
+              "lora_a_norm_ratio_max": max(lora_a.values()),
+              "launches": {k: counts[k] for k in (
+                  "grouped_matmul", "grouped_matmul_dw")}}
+    emit(record)
+    if base_moved or not stateful or \
+            not all("_lora." in n for n in stateful) or \
+            len(state) != len(stateful) or len(losses) != steps or \
+            not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"finetune_lora: base moved {base_moved[:4]}, "
+                             f"optimizer over {stateful[:4]}..., losses "
+                             f"{losses}")
+    del engine
+    return record
+
+
+def lora_rows(dx_cases, grad) -> list:
+    """The kernels line's row of kernel 7's dx route (the gradient
+    phase's case, the worst errors over its cases, its launches on
+    ``grad_int8_lora``'s 24-layer pass)."""
+    head = dx_cases[0]
+    err = max(c["max_abs_err"] for c in dx_cases)
+    launches = grad["full"]["launches"]["quantized_matmul_dx"]
+    return [{
+        "name": "quantized_matmul_dx", "route": "cuda",
+        "source": "paddlefleetx_tpu_torch/csrc/quantized_matmul.cu",
+        "replaces": "paddlefleetx_tpu/ops/pallas/quantized_matmul.py:129",
+        "replaces_kernel": "paddlefleetx_tpu/ops/pallas/"
+        "quantized_matmul.py:44 (_qmm_kernel, launched again by "
+        "_quantized_matmul_bwd)",
+        "launches": launches,
+        "launches_by_path": {"grad_int8_lora": launches},
+        "max_abs_err": err, "max_err": err,
+        "tol": {c["dtype"]: c["tol"] for c in dx_cases},
+        "max_rel_l2": max(c["rel_l2"] for c in dx_cases),
+        "min_rel_l2_planted": min(c["rel_l2_planted"] for c in dx_cases),
+        "tol_rel_l2": TOL_REL_L2, "normwise_per": "64 x 64 output tile",
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_computes": head["library_computes"],
+        "shape": {k: head[k] for k in ("dtype", "site", "M", "K", "N")},
+        "by_shape": {f"{c['dtype']}_{c['site']}_M{c['M']}": {
+            k: c[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")} for c in dx_cases},
+        "cases": len(dx_cases)}]
+
+
+def gmm_rows(cases, train_moe, lora=None) -> list:
     """The kernels line's rows of kernels 8 and 9: the main path's case
     (bf16 fc1, forward and dw) with the worst errors over all their
     cases, the times at every shape, and the launches of ``train_moe``
-    (counted from zero just before it)."""
+    (counted from zero just before it); with ``lora``, ``(LoRA cases,
+    their deltas, serve_lora, grad_int8_lora)``, also the bank shapes'
+    errors and times and the launches of the serving arms and of the
+    full-depth gradient pass."""
+    lora_cases, deltas, serve_lora, grad = lora or ([], [], None, None)
+    cases = cases + lora_cases
     rows = []
     for name, replaces in (
             ("grouped_matmul",
@@ -2989,12 +3737,17 @@ def gmm_rows(cases, train_moe) -> list:
         mine = [c for c in cases if c["kernel"] == name]
         head = mine[0]
         err = max(c["max_abs_err"] for c in mine)
-        launches = train_moe["launches"][name]
+        by_path = {"train_moe": train_moe["launches"][name]}
+        if serve_lora is not None:
+            for arm, rec in serve_lora["arms"].items():
+                by_path[f"serve_lora_{arm}"] = rec["launches"].get(name, 0)
+        if grad is not None:
+            by_path["grad_int8_lora"] = grad["full"]["launches"][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddlefleetx_tpu_torch/csrc/grouped_matmul.cu",
-            "replaces": replaces, "launches": launches,
-            "launches_by_path": {"train_moe": launches},
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": err, "max_err": err,
             "tol": {c["dtype"]: c["tol"] for c in mine},
             "max_rel_l2": max(c["rel_l2"] for c in mine),
@@ -3010,11 +3763,16 @@ def gmm_rows(cases, train_moe) -> list:
             "grouped_mm_call": head["grouped_mm_call"],
             "shape": {k: head[k] for k in ("dtype", "call", "G", "Gw", "C",
                                            "K", "N", "live_groups")},
-            "by_shape": {f"{c['dtype']}_{c['call']}": {
+            "by_shape": {f"{c['dtype']}_{c['call']}"
+                         f"{'_C%d' % c['C'] if c.get('lora') else ''}": {
                 k: c[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
                                   "grouped_mm_ms", "bound_ms", "bound_by")}
                 for c in mine},
             "cases": len(mine)})
+    if deltas:
+        rows[0]["lora_delta"] = {f"{d['site']}_C{d['C']}": {
+            k: d[k] for k in ("pair_ms", "gather_einsum_ms")}
+            for d in deltas}
     return rows
 
 
@@ -3164,7 +3922,8 @@ def int8_rows(dec8, window8, qmm_cases, runs) -> list:
 
 
 def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
-                 serve_paged=None, spec=None, int8=None, moe=None) -> dict:
+                 serve_paged=None, spec=None, int8=None, moe=None,
+                 lora=None) -> dict:
     """The per-kernel record: each kernel's main-path shape (kernel 1:
     the serving case first, the training case beside it; kernels 3 and
     4: the recipe's bf16 case with dropout), the worst error over all
@@ -3257,7 +4016,12 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
     if int8 is not None:
         rows += int8_rows(*int8)
     if moe is not None:
-        rows += gmm_rows(*moe)
+        # lora: (dx cases, grad_int8_lora, kernel 8 / 9 bank cases, the
+        # deltas, serve_lora)
+        rows += gmm_rows(*moe, lora=None if lora is None else (
+            lora[2], lora[3], lora[4], lora[1]))
+    if lora is not None:
+        rows += lora_rows(lora[0], lora[1])
     return {"kernels": rows}
 
 
@@ -3279,7 +4043,9 @@ def main() -> int:
     window = phase_decode_kernels()
     dec8, window8 = phase_int8_decode_kernels()
     qmm_cases = phase_kernel_qmm()
+    qmm_dx_cases = phase_kernel_qmm_dx()
     gmm_cases = phase_kernel_gmm()
+    gmm_lora = phase_kernel_gmm_lora()
     fwd_drop = phase_kernel1_dropout()
     bwd = phase_backward()
     torch.cuda.empty_cache()
@@ -3319,11 +4085,24 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     phase_train_moe_parity()
+    torch.cuda.empty_cache()
+    serve_lora, module = phase_serve_lora()
+    phase_profile_lora(module)
+    del module
+    torch.cuda.empty_cache()
+    phase_serve_lora_int8()
+    torch.cuda.empty_cache()
+    phase_parity_lora()
+    torch.cuda.empty_cache()
+    grad = phase_grad_int8_lora()
+    torch.cuda.empty_cache()
+    phase_finetune_lora()
     print(card, flush=True)
     emit(kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window,
                       serve_paged, spec,
                       (dec8, window8, qmm_cases, int8_runs),
-                      (gmm_cases, train_moe)))
+                      (gmm_cases, train_moe),
+                      (qmm_dx_cases, grad, *gmm_lora, serve_lora)))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,13 @@ hashes), written to a temporary name and renamed into place, the
 directory fsynced: a directory without a committed manifest is a torn
 save, and :func:`latest_checkpoint` never picks it. Saves are
 synchronous in this slice.
+
+LoRA adapters (:func:`save_adapter` / :func:`load_adapter`) are stored
+in the JAX package's format, so either package reads the other's:
+``adapter.npz`` holds the canonical tree's leaves (``core/adapters.py``)
+as ``leaf{i}`` in sorted key order, ``adapter.json`` (``kind:
+lora_adapter``) names each key's leaf, shape and dtype and carries the
+caller's ``meta``, and the manifest is committed last.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import os
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.log import logger
@@ -109,6 +117,81 @@ def _write(path: str, obj, as_json: bool = False) -> None:
             torch.save(obj, f)
         f.flush()
         os.fsync(f.fileno())
+
+
+def save_adapter(path: str, tree: Dict[str, Any],
+                 meta: Optional[Dict[str, Any]] = None) -> str:
+    """Persist one canonical LoRA adapter tree (``{"site/leaf":
+    [num_layers, ...]}``, tensors or arrays) at ``path``: the leaves in
+    ``adapter.npz``, the descriptor ``adapter.json`` with ``meta``
+    verbatim, then the manifest (:func:`write_manifest`). Re-saving
+    removes the old manifest first. Returns the manifest's path.
+
+    Raises:
+        ValueError: ``tree`` is empty.
+    """
+    if not tree:
+        raise ValueError("refusing to save an empty adapter tree")
+    os.makedirs(path, exist_ok=True)
+    stale = os.path.join(path, MANIFEST_NAME)
+    if os.path.exists(stale):
+        os.remove(stale)
+    arrays: Dict[str, np.ndarray] = {}
+    index: Dict[str, Dict[str, Any]] = {}
+    for i, key in enumerate(sorted(tree)):
+        val = tree[key]
+        arr = val.detach().cpu().numpy() if torch.is_tensor(val) \
+            else np.asarray(val)
+        arrays[f"leaf{i}"] = arr
+        index[key] = {"npz": f"leaf{i}", "shape": list(arr.shape),
+                      "dtype": str(arr.dtype)}
+    with open(os.path.join(path, "adapter.npz"), "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    _write(os.path.join(path, "adapter.json"),
+           {"kind": "lora_adapter", "meta": meta or {}, "leaves": index},
+           as_json=True)
+    return write_manifest(path, {"kind": "lora_adapter",
+                                 "leaves": len(index)})
+
+
+def load_adapter(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """``(tree, meta)`` of a :func:`save_adapter` directory (numpy
+    leaves).
+
+    Raises:
+        CheckpointCorrupt: the directory was never committed, fails
+            verification, is not an adapter, or a leaf disagrees with
+            its descriptor (a torn adapter would serve wrong deltas, so
+            there is no fallback).
+    """
+    reason = verify_checkpoint(path)
+    if reason is not None:
+        raise CheckpointCorrupt(f"adapter at {path} refused: {reason}")
+    try:
+        with open(os.path.join(path, "adapter.json")) as f:
+            desc = json.load(f)
+        if desc.get("kind") != "lora_adapter":
+            raise CheckpointCorrupt(f"{path} is not an adapter dir "
+                                    f"(kind={desc.get('kind')!r})")
+        tree: Dict[str, np.ndarray] = {}
+        with np.load(os.path.join(path, "adapter.npz")) as npz:
+            for key, ent in desc.get("leaves", {}).items():
+                arr = npz[ent["npz"]]
+                if list(arr.shape) != list(ent["shape"]) or \
+                        str(arr.dtype) != ent["dtype"]:
+                    raise CheckpointCorrupt(
+                        f"adapter leaf {key} at {path}: descriptor says "
+                        f"{ent['shape']}/{ent['dtype']}, npz holds "
+                        f"{list(arr.shape)}/{arr.dtype}")
+                tree[key] = arr
+    except (OSError, ValueError, KeyError) as err:
+        raise CheckpointCorrupt(
+            f"adapter at {path} unreadable: {err}") from err
+    if not tree:
+        raise CheckpointCorrupt(f"adapter at {path} holds no leaves")
+    return tree, desc.get("meta", {})
 
 
 def save_checkpoint(output_dir: str, epoch: int, step: int,

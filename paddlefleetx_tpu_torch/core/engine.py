@@ -9,7 +9,15 @@ the scheduled rate, logs every ``logging_freq`` steps, evaluates every
 ``eval_freq`` steps for ``eval_iters`` batches and saves every
 ``save_steps``; ``save`` / ``load`` write and restore a checkpoint
 (``core/checkpoint.py``) and ``Engine.save_load.ckpt_dir`` resumes at
-construction. The engine knobs this slice does not port (data, model,
+construction. A model with LoRA banks (``lora_rank > 0``) fine-tunes
+with the base frozen, as the JAX engine's ``optax.multi_transform``
+does: AdamW, its clipping and decay mask cover the ``*_lora`` parameters
+only, the base parameters keep no optimizer state and never move, and
+the logged ``grad_norm`` is over every parameter's gradient. The
+training forward passes no adapter ids, as the JAX ``GPTModule`` does,
+so the banks see zero gradients there and only weight decay moves
+``lora_a``: the port reproduces the JAX package here. The engine knobs
+this slice does not port (data, model,
 pipeline, sharding or expert parallelism, optimizer offload, the profiler
 window, telemetry, asynchronous or preemption saves, retention, epoch
 run mode) raise ``NotImplementedError``; none is ignored.
@@ -26,6 +34,7 @@ import torch
 
 from ..models.gpt.model import fold_seed
 from ..optims import build_lr_scheduler, build_optimizer
+from ..optims.optimizer import clip_by_global_norm_
 from ..utils.device import resolve_device
 from ..utils.log import logger
 from . import checkpoint as ckpt
@@ -107,14 +116,23 @@ class Engine:
         self.global_batch_size = configs.Global.global_batch_size
         self.seed = int(configs.Global.get("seed", 1024))
         self.optimizer = None
+        #: the parameters a LoRA fine-tune freezes (none otherwise)
+        self._frozen: List[torch.nn.Parameter] = []
         self.lr_schedule = lambda step: 0.0
         if mode == "train":
             opt_cfg = configs.Optimizer
             self.lr_schedule = build_lr_scheduler(
                 opt_cfg.lr if "lr" in opt_cfg else
                 {"learning_rate": opt_cfg.get("learning_rate", 1e-4)})
-            self.optimizer = build_optimizer(
-                opt_cfg, self.model.named_parameters(), self.lr_schedule)
+            named = list(self.model.named_parameters())
+            if getattr(getattr(self.model, "config", None), "lora_rank", 0):
+                logger.info("LoRA fine-tune: base weights frozen (no "
+                            "optimizer state), training only the *_lora "
+                            "adapter banks")
+                self._frozen = [p for n, p in named if "_lora." not in n]
+                named = [(n, p) for n, p in named if "_lora." in n]
+            self.optimizer = build_optimizer(opt_cfg, named,
+                                             self.lr_schedule)
         #: optimizer steps done (the LR step and the dropout stream)
         self.step = 0
         #: every logged step's record (loss, lr, grad_norm, train_cost)
@@ -156,7 +174,22 @@ class Engine:
             torch._foreach_div_(grads, float(acc))
             loss_sum = loss_sum / acc
         lr = self.lr_schedule(self.step)
-        norm = self.optimizer.step(self.step)
+        if self._frozen:
+            # the logged norm is over every leaf's gradient, as the JAX
+            # engine's; the update (and its clipping) sees the banks only
+            norm = clip_by_global_norm_(
+                [p.grad for p in self.model.parameters()
+                 if p.grad is not None], None)
+            for p in self._frozen:
+                p.grad = None
+            # a bank the forward never reached (no adapter ids) has the
+            # zero gradient JAX computes for it, and still decays
+            for p in self.optimizer.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.optimizer.step(self.step)
+        else:
+            norm = self.optimizer.step(self.step)
         self.step += 1
         return loss_sum, norm, lr
 

@@ -48,11 +48,30 @@ tokens, not ticks), ``serving/spec_drafted`` and
 the ``serving/decode_tick`` timer in the process-global registry (the
 JAX package's names, ``docs/inference.md``), and a
 :meth:`GenerationServer.summary` with decode tokens/s and TTFT
-percentiles. Not ported yet (asking for them raises
-``NotImplementedError``): the host KV tier (``host_pool_bytes``),
-device-resident decode loops (``device_loop_ticks > 1``), MoE models,
-LoRA adapters, deadlines, queue shedding, SIGTERM drain, fault injection,
-KV export / import, the prefix store and the event trace.
+percentiles.
+
+Multi-tenant LoRA (``adapter_source``, a model with ``lora_rank > 0``):
+each request names an adapter (``submit(..., adapter_id=)``, 0 the base
+model). Admission pins the adapter to a bank row through an
+:class:`~.adapters.AdapterCache` (loading it into the model's banks on a
+miss, evicting the least recently released unpinned adapter when the
+bank is full) and blocks the queue head while every row is pinned;
+completion and preemption release the pin. Every forward takes the
+per-slot bank rows (``adapter_ids``), uploaded only when they change,
+and runs the grouped LoRA delta (``ops/lora.py``). An unknown adapter
+fails only its own request (``finish_reason="adapter_missing"``).
+Adapter requests neither consult nor seed the prefix and prompt
+registries: an adapter changes every layer's KV for the same tokens.
+Counted ``serving/adapter_{hits,misses,evictions}`` with the
+``serving/adapters_resident`` gauge; the JAX package's
+``serving_adapter_load`` / ``serving_adapter_evict`` events belong to
+its event recorder, which is not ported.
+
+Not ported yet (asking for them raises ``NotImplementedError``): the
+host KV tier (``host_pool_bytes``), device-resident decode loops
+(``device_loop_ticks > 1``), MoE models, deadlines, queue shedding,
+SIGTERM drain, fault injection, KV export / import, the prefix store and
+the event trace.
 """
 
 from __future__ import annotations
@@ -74,6 +93,7 @@ from ..models.gpt.generation import (
 from ..models.gpt.model import GPTForPretraining
 from ..observability import metrics
 from ..utils.log import logger
+from .adapters import AdapterCache, insert_adapter
 from .paging import (
     NULL_PAGE, PageAllocator, PagePoolExhausted, page_prefix_keys,
     pool_bytes, prompt_key,
@@ -101,7 +121,8 @@ class Completion:
     prompt: List[int]
     #: emitted tokens in order, EOS included when hit
     tokens: List[int]
-    #: "eos" | "length" (hit max_dec_len)
+    #: "eos" | "length" (hit max_dec_len) | "adapter_missing" (an
+    #: unknown adapter id, failed at admission)
     finish_reason: str
     #: time to first token in ms
     ttft_ms: Optional[float] = None
@@ -130,6 +151,10 @@ class GenerationServer:
             and whole-prompt registries.
         device_loop_ticks (int): ticks per host round trip; only 1 is
             ported.
+        adapter_source: adapter id -> canonical LoRA adapter tree
+            (``core/adapters.py``), a Mapping or a callable that raises
+            ``KeyError`` for an unknown id; needs a model with
+            ``lora_rank > 0``. None serves the base model only.
     """
 
     def __init__(self, model: GPTForPretraining, gen_cfg: GenerationConfig,
@@ -138,13 +163,14 @@ class GenerationServer:
                  seed: int = 0, page_size: Optional[int] = None,
                  pool_pages: Optional[int] = None,
                  prefill_chunk_pages: int = 2, prefix_sharing: bool = True,
-                 device_loop_ticks: int = 1, **unported):
+                 device_loop_ticks: int = 1, adapter_source=None,
+                 **unported):
         if unported:
             raise NotImplementedError(
                 f"GenerationServer options not ported to the PyTorch "
                 f"package yet: {sorted(unported)} (the host KV tier, "
-                f"LoRA, deadlines, shedding, drain, fault injection and "
-                f"KV export are later slices)")
+                f"deadlines, shedding, drain, fault injection and KV "
+                f"export are later slices)")
         if device_loop_ticks < 1:
             raise ValueError(f"device_loop_ticks must be >= 1, got "
                              f"{device_loop_ticks}")
@@ -231,6 +257,22 @@ class GenerationServer:
         self._next_id = 0
         self._nonce = 0
         self._counts = {"admitted": 0, "evicted": 0, "preempted": 0}
+        # each slot's bank row (0: the base model), uploaded for the
+        # ticks only when it changed
+        self._adapters: Optional[AdapterCache] = None
+        if adapter_source is not None:
+            if not cfg.lora_rank:
+                raise ValueError("adapter_source requires a LoRA model "
+                                 "(lora_rank > 0)")
+            self._adapters = AdapterCache(cfg.lora_num_adapters,
+                                          adapter_source)
+            self._aid_np = np.zeros((num_slots,), np.int32)
+            self._aid_dev = torch.as_tensor(self._aid_np,
+                                            device=self._device)
+            self._aid_dirty = False
+        #: requests failed at admission (an unknown adapter id), returned
+        #: by the next step()
+        self._dead: List[Completion] = []
         self._ticks = 0
         self._decode_tokens = 0
         self._tick_time = 0.0
@@ -265,14 +307,32 @@ class GenerationServer:
         if self.paged:
             self._alloc.check()
 
+    @property
+    def has_adapters(self) -> bool:
+        """Whether this server serves non-zero adapter ids at all (LoRA
+        banks and an adapter source)."""
+        return self._adapters is not None
+
+    def adapter_affinity(self, adapter_id: int) -> int:
+        """A router's score: 1 when ``adapter_id`` is resident in this
+        server's bank (its admission is a hit), else 0; base requests
+        (id 0) and base-only servers score 0."""
+        if not adapter_id or self._adapters is None:
+            return 0
+        return int(self._adapters.is_resident(adapter_id))
+
     def submit(self, prompt: Sequence[int],
-               nonce: Optional[int] = None) -> int:
+               nonce: Optional[int] = None, adapter_id: int = 0) -> int:
         """Queue a request and return its id.
 
-        Raises ``ValueError`` for an empty prompt or one that can never
-        fit (``prompt + max_dec_len > max_position_embeddings``).
-        ``nonce`` overrides the server's per-request sampling-stream
-        counter (submission order by default).
+        Raises ``ValueError`` for an empty prompt, one that can never
+        fit (``prompt + max_dec_len > max_position_embeddings``), a
+        negative ``adapter_id`` or a non-zero one on a server without an
+        ``adapter_source``. ``nonce`` overrides the server's per-request
+        sampling-stream counter (submission order by default).
+        ``adapter_id`` serves the request through that LoRA adapter (0:
+        the base model); admission pins its bank row until the request
+        leaves the card.
         """
         prompt = [int(t) for t in prompt]
         if not prompt:
@@ -283,18 +343,95 @@ class GenerationServer:
                 f"({self.gen_cfg.max_dec_len}) exceeds "
                 f"max_position_embeddings "
                 f"{self.model.config.max_position_embeddings}")
+        adapter_id = int(adapter_id)
+        if adapter_id < 0:
+            raise ValueError(f"adapter_id must be >= 0, got {adapter_id}")
+        if adapter_id and self._adapters is None:
+            raise ValueError("adapter_id requires an adapter_source (this "
+                             "server serves the base model only)")
         if nonce is None:
             nonce = self._nonce
             self._nonce += 1
         rid = self._next_id
         self._next_id += 1
         self._queue.append({"id": rid, "prompt": prompt, "tokens": [],
-                            "nonce": int(nonce),
+                            "nonce": int(nonce), "adapter_id": adapter_id,
                             "submit_t": time.perf_counter()})
         return rid
 
     def _bucket_for(self, n: int) -> int:
         return next(b for b in self._buckets if b >= n)
+
+    # -- the adapter cache -------------------------------------------
+    #
+    # The host maps each slot to the bank row of its request's adapter
+    # (_aid_np, row 0 the base model); the rows ride down with every
+    # forward as an int32 tensor. A request whose adapter cannot claim a
+    # row yet blocks the queue head, as page starvation does.
+
+    def _adapter_admissible(self, req: dict) -> bool:
+        aid = req["adapter_id"]
+        return not aid or self._adapters.can_admit(aid)
+
+    def _set_row(self, slot: int, row: int) -> None:
+        if self._aid_np[slot] != row:
+            self._aid_np[slot] = row
+            self._aid_dirty = True
+
+    def _claim(self, req: dict, slot: int) -> bool:
+        """Pop the queue head ``req`` and point ``slot`` at its adapter's
+        bank row (row 0 for a base request), pinning the adapter and
+        inserting it into the model's banks on a miss. False for an
+        unknown adapter: the request completes as ``adapter_missing``
+        with its tokens so far, and the queue moves on."""
+        self._queue.popleft()
+        if self._adapters is None:
+            return True
+        row = 0
+        if req["adapter_id"]:
+            try:
+                lease = self._adapters.acquire(req["adapter_id"])
+            except KeyError:
+                self._counts["evicted"] += 1
+                metrics.inc("serving/evicted")
+                self._dead.append(Completion(
+                    request_id=req["id"], prompt=req["prompt"],
+                    tokens=req["tokens"], finish_reason="adapter_missing",
+                    ttft_ms=req.get("ttft_ms")))
+                return False
+            if lease.tree is not None:
+                insert_adapter(self.model, lease.tree, lease.row)
+            row = lease.row
+        self._set_row(slot, row)
+        return True
+
+    def _release_adapter(self, slot: int, req: dict) -> None:
+        """Unpin a departing request's adapter (it stays resident and
+        evictable) and park the slot on the zero row."""
+        if self._adapters is None:
+            return
+        if req["adapter_id"]:
+            self._adapters.release(req["adapter_id"])
+        self._set_row(slot, 0)
+
+    def _rows_arg(self, slot: int) -> Optional[torch.Tensor]:
+        """One admission's ``[1]`` bank-row tensor, None on a base-only
+        server (no LoRA compute at all)."""
+        if self._adapters is None:
+            return None
+        return torch.as_tensor(self._aid_np[slot:slot + 1],
+                               device=self._device)
+
+    def _aid_arg(self) -> Optional[torch.Tensor]:
+        """The ticks' ``[slots]`` bank rows, uploaded when they changed;
+        None on a base-only server."""
+        if self._adapters is None:
+            return None
+        if self._aid_dirty:
+            self._aid_dev = torch.as_tensor(self._aid_np,
+                                            device=self._device)
+            self._aid_dirty = False
+        return self._aid_dev
 
     def _admit(self) -> None:
         """Move queued requests into free slots: one prefill each
@@ -303,15 +440,20 @@ class GenerationServer:
             self._admit_paged()
             return
         while self._queue and None in self._slots:
-            req = self._queue.popleft()
+            req = self._queue[0]
+            if not self._adapter_admissible(req):
+                break
             slot = self._slots.index(None)
+            if not self._claim(req, slot):
+                continue
             seq = req["prompt"]
             bucket = self._bucket_for(len(seq))
             row = np.full((1, bucket), self.gen_cfg.pad_token_id, np.int64)
             row[0, :len(seq)] = seq
             prefill_into_slots(self.model, self._cache, self._state, [slot],
                                torch.as_tensor(row, device=self._device),
-                               [len(seq)], [req["nonce"]])
+                               [len(seq)], [req["nonce"]],
+                               self._rows_arg(slot))
             self._slots[slot] = req
             self._counts["admitted"] += 1
             metrics.inc("serving/admitted")
@@ -372,17 +514,23 @@ class GenerationServer:
         prefix pages plus fresh owned pages and queue the slot for
         chunked prefill. The queue HEAD blocks while the pool cannot
         cover its owned pages: admitting smaller later requests over it
-        would starve long prompts."""
+        would starve long prompts; so does an adapter with no free bank
+        row. Adapter requests neither share nor register pages: the
+        registries hold base-model KV."""
         while self._queue and None in self._slots:
             req = self._queue[0]
+            if not self._adapter_admissible(req):
+                break
             seq = req["prompt"] + req["tokens"]
             L = len(seq)
             slot = self._slots.index(None)
+            share = self._prefix_sharing and not req["adapter_id"]
             hit = self._alloc.lookup_prompt(prompt_key(seq)) \
-                if self._prefix_sharing else None
+                if share else None
             if hit is not None:
                 pages, last = hit
-                self._queue.popleft()
+                if not self._claim(req, slot):
+                    continue
                 for pid in pages:
                     self._alloc.retain(pid)
                 self._pt[slot, :] = NULL_PAGE
@@ -394,7 +542,7 @@ class GenerationServer:
                 self._activate(slot, last)
                 continue
             shared: List[int] = []
-            if self._prefix_sharing:
+            if share:
                 # share only FULL pages strictly before the one holding
                 # the last prompt token: that page recomputes locally
                 # so the first sampling logits exist
@@ -414,7 +562,8 @@ class GenerationServer:
             total_pages = (start + n_chunks * self._chunk) // self._page
             if self._alloc.free_pages < total_pages - len(shared):
                 break
-            self._queue.popleft()
+            if not self._claim(req, slot):
+                continue
             self._pt[slot, :] = NULL_PAGE
             for j, pid in enumerate(shared):
                 self._alloc.retain(pid)
@@ -450,7 +599,8 @@ class GenerationServer:
             self.model, self._cache, torch.as_tensor(row,
                                                      device=self._device),
             [c0], self._pt_dev[slot:slot + 1],
-            logit_rows=[min(L - 1 - c0, self._chunk - 1)])
+            logit_rows=[min(L - 1 - c0, self._chunk - 1)],
+            adapter_ids=self._rows_arg(slot))
         req["prefill_pos"] = c0 + self._chunk
         self._prefill_chunk_count += 1
         metrics.inc("serving/prefill_chunks")
@@ -463,7 +613,7 @@ class GenerationServer:
         self._trim_pages(slot, -(-L // self._page))
         last = logits[0]
         self._activate(slot, last)
-        if self._prefix_sharing:
+        if self._prefix_sharing and not req["adapter_id"]:
             for j, key in enumerate(page_prefix_keys(seq, self._page)):
                 self._alloc.register_prefix(key, int(self._pt[slot, j]))
             self._alloc.register_prompt(
@@ -514,6 +664,9 @@ class GenerationServer:
             # a pending rejection residual must survive the round trip
             req["spec_rejected"] = self._state.rejected[victim]
         self._trim_pages(victim, 0)
+        # the pin drops, the adapter stays resident: re-admission re-pins
+        # it and resumes token for token
+        self._release_adapter(victim, req)
         if victim in self._prefilling:
             self._prefilling.remove(victim)
         self._slots[victim] = None
@@ -565,6 +718,7 @@ class GenerationServer:
             self._trim_pages(slot, 0)
             if slot in self._prefilling:
                 self._prefilling.remove(slot)
+        self._release_adapter(slot, req)
         self._slots[slot] = None
         self._state.active[slot] = False
         self._state.finished[slot] = False
@@ -593,19 +747,21 @@ class GenerationServer:
                 self._sync_pt()
                 pt = self._pt_dev_dec
             return verify_step(self.model, self._cache, self._state,
-                               drafts, self.gen_cfg, self.seed, pt)
+                               drafts, self.gen_cfg, self.seed, pt,
+                               self._aid_arg())
         if self.paged:
             self._page_maintenance()
             self._sync_pt()
             pt = self._pt_dev_dec
         tokens = decode_step(self.model, self._cache, self._state,
-                             self.gen_cfg, self.seed, pt)
+                             self.gen_cfg, self.seed, pt, self._aid_arg())
         return [[t] for t in tokens], [1] * self.num_slots
 
     def step(self) -> List[Completion]:
         """Admit what fits, advance at most one prefill chunk (paged),
         tick every ACTIVE slot (one token plain, 1..k+1 committed tokens
-        speculative), then evict and return whatever finished."""
+        speculative), then evict and return whatever finished (with any
+        request that failed admission)."""
         self._admit()
         reg = metrics.get_registry()
         if self.paged:
@@ -613,9 +769,10 @@ class GenerationServer:
             reg.set_gauge("serving/pages_in_use", self._alloc.pages_in_use)
         live = [s for s, r in enumerate(self._slots)
                 if r is not None and (not self.paged or r.get("active"))]
+        dead, self._dead = self._dead, []
         if not live:
             reg.set_gauge("serving/slot_occupancy", self.occupancy)
-            return []
+            return dead
         t0 = time.perf_counter()
         with reg.timer("serving/decode_tick"):
             # each tick ends in a device->host copy of its tokens, so
@@ -663,12 +820,18 @@ class GenerationServer:
             reg.set_gauge("serving/spec_accept_rate",
                           self._spec_accepted / max(self._spec_drafted, 1))
         reg.set_gauge("serving/slot_occupancy", self.occupancy)
-        return done
+        return dead + done
 
-    def run(self, prompts: Sequence[Sequence[int]]) -> List[Completion]:
+    def run(self, prompts: Sequence[Sequence[int]],
+            adapter_ids: Optional[Sequence[int]] = None
+            ) -> List[Completion]:
         """Serve prompts to completion; completions return in submission
-        order."""
-        ids = [self.submit(p) for p in prompts]
+        order. ``adapter_ids`` pairs each prompt with a LoRA adapter (0,
+        the default, the base model)."""
+        if adapter_ids is None:
+            adapter_ids = [0] * len(prompts)
+        ids = [self.submit(p, adapter_id=a)
+               for p, a in zip(prompts, adapter_ids)]
         done: Dict[int, Completion] = {}
         while self.pending or self.occupancy:
             for c in self.step():
@@ -698,6 +861,10 @@ class GenerationServer:
             s["spec_accepted"] = self._spec_accepted
             s["spec_accept_rate"] = \
                 self._spec_accepted / max(self._spec_drafted, 1)
+        if self._adapters is not None:
+            s["adapter_rows"] = self._adapters.capacity
+            s["adapters_resident"] = self._adapters.resident
+            s.update(self._adapters.stats)
         if self.paged:
             cfg = self.config
             s["paged"] = True

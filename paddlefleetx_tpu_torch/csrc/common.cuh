@@ -2,7 +2,7 @@
 // kernels compute in to the storage types (bf16, fp32), 16-byte vector
 // loads that widen to fp32, the int8 cache's 8-byte loads that widen
 // and dequantize, and the bf16 mma.sync product of the tensor-core
-// kernels.
+// kernels with its transposed fragment load.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -115,6 +115,19 @@ static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 static __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8j ..
+// 8j + 7 give the (16-byte aligned) row addresses of matrix j, r[j] is
+// its fragment. The B operand of mma_bf16 from a tile staged [k][n]
+// (the output axis contiguous) comes this way.
+static __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r,
+                                                     const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 // d += a * b: one m16n8k16 product, bf16 operands, fp32 accumulator

@@ -85,16 +85,6 @@ __device__ __forceinline__ uint4 load8(const bf16* row, int col, int limit,
                     v[4] | (v[5] << 16), v[6] | (v[7] << 16));
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8j ..
-// 8j + 7 give the row addresses of matrix j, r[j] is its fragment.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // The B fragments of one k16 step for a warp's 4 n8 tiles from a tile
 // staged [k][n] (N contiguous): columns n_base .. n_base + 31.
 template <int kCols>
@@ -106,7 +96,7 @@ __device__ __forceinline__ void b_frags_trans(uint32_t (*b)[2],
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     uint32_t r[4];
-    ldsm_x4_trans(r, &s[k_base + (mat & 1) * 8 + i]
+    pfx::ldsm_x4_trans(r, &s[k_base + (mat & 1) * 8 + i]
                        [n_base + p * 16 + (mat >> 1) * 8]);
     b[2 * p][0] = r[0];
     b[2 * p][1] = r[1];
@@ -350,7 +340,7 @@ __global__ void __launch_bounds__(kThreads)
             // x^T (m = k index, reduction = c): matrix j covers rows c
             // 8 (j >> 1) .. + 7 and columns m 8 (j & 1) .. + 7
             uint32_t a[4];
-            ldsm_x4_trans(a, &xs[kk * 16 + (mat >> 1) * 8 + li]
+            pfx::ldsm_x4_trans(a, &xs[kk * 16 + (mat >> 1) * 8 + li]
                                 [mt * 16 + (mat & 1) * 8]);
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt)

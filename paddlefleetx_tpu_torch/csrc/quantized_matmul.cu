@@ -1,9 +1,11 @@
 // Weight-only int8 matmul for Hopper (sm_90a): kernel 7 of the port, the
 // dense sites (qkv, out, fc1, fc2) under `quant_execution:
-// weight_only_int8`.
+// weight_only_int8`, and its dx route, the input gradient of those sites.
 //
 // Replaces: paddlefleetx_tpu/ops/pallas/quantized_matmul.py `_qmm_kernel`
-// (:44, launched by `_qmm_call`, pallas_call at :83). Computes
+// (:44, launched by `_qmm_call`, pallas_call at :83), both where the
+// forward launches it and where `_quantized_matmul_bwd` (:129-145)
+// launches it again for the gradient. The forward computes
 //   out[m, n] = (sum_k x[m, k] * float(w[n, k])) * scale[n]
 // with an fp32 accumulator and the per-output-channel scale applied once
 // at the write-out (exact: a factor per n commutes with the sum over k),
@@ -39,6 +41,23 @@
 //   order with fused multiply-adds.
 // At decode shapes (M = 16, N = 1024) that is 16 blocks for 132 SMs:
 // split-K, wgmma and TMA are later work.
+//
+// The dx route (a second instance of each kernel, template kDx):
+//   dx[m, k] = sum_n gs[m, n] * float(w[n, k])
+// with gs = (g * scale) rounded to g's type by the wrapper, as the TPU
+// route rounds it before its product, and no write-out scale (the TPU
+// route passes unit scales). The reduction axis is now N and the weight
+// is the same [N, K] storage, read the other way: the output axis K is
+// the contiguous one. No transposed copy of the weight is made. What
+// bounds it is what bounds the forward (the int8 weight's bytes at small
+// M, the products at large M), and the design is the forward's with the
+// B tile staged as read:
+// - bf16: a 64 (n) x 64 (k) int8 tile read as 16-byte rows of k, widened
+//   into shared memory as [n][k], the output axis contiguous; each warp's
+//   B fragments for its 16 output columns come from one ldmatrix.trans
+//   per k16 step (kernel 8's pattern for its N-contiguous B operand).
+// - fp32: the CUDA-core kernel stages the weight [reduction][column]
+//   already; the dx instance fills that tile from rows of k directly.
 
 #include "common.cuh"
 
@@ -74,12 +93,19 @@ __device__ __forceinline__ void widen16(const uint4& r, __nv_bfloat16* dst) {
   d[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
 }
 
+// out [M, N] = x [M, K] @ B, B (k, n) = w[n K + k] (forward) or, with
+// kDx, w[k N + n] (the dx route: here K is the gradient's reduction axis
+// and N its output axis); the write-out multiplies by scale[n] unless
+// kDx.
+template <bool kDx>
 __global__ void __launch_bounds__(kMmaThreads)
     qmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    const int8_t* __restrict__ w,
                    const float* __restrict__ scale,
                    __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  static_assert(kBN == kMmaBK, "the widened tile is square either way");
   __shared__ __align__(16) __nv_bfloat16 xs[kBM][kMmaBK + kPad];
+  // [n][k] for the forward, [k][n] (as read) for the dx route
   __shared__ __align__(16) __nv_bfloat16 ws[kBN][kMmaBK + kPad];
 
   const int n0 = blockIdx.x * kBN;
@@ -113,9 +139,10 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int i = 0; i < kWLoads; ++i) {
       const int idx = tid + i * kMmaThreads;
-      const int col = n0 + idx / (kMmaBK / 16);
+      const int r = idx / (kMmaBK / 16);
       const int c16 = (idx % (kMmaBK / 16)) * 16;
-      wr[i] = pfx::load_raw(w + (long long)col * K + k0 + c16);
+      wr[i] = kDx ? pfx::load_raw(w + (long long)(k0 + r) * N + n0 + c16)
+                  : pfx::load_raw(w + (long long)(n0 + r) * K + k0 + c16);
     }
   };
 
@@ -139,11 +166,23 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int kk = 0; kk < kMmaBK / 16; ++kk) {
       const int c = kk * 16 + t * 2;
       uint32_t b[2][2];
+      if constexpr (kDx) {
+        // matrices (k lo, n lo), (k hi, n lo), (k lo, n hi), (k hi, n hi)
+        const int mat = lane / 8, i = lane % 8;
+        uint32_t r[4];
+        pfx::ldsm_x4_trans(r, &ws[kk * 16 + (mat & 1) * 8 + i]
+                                 [warp * 16 + (mat >> 1) * 8]);
+        b[0][0] = r[0];
+        b[0][1] = r[1];
+        b[1][0] = r[2];
+        b[1][1] = r[3];
+      } else {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const __nv_bfloat16* wrow = &ws[warp * 16 + nt * 8 + g][c];
-        b[nt][0] = pfx::ld_u32(wrow);
-        b[nt][1] = pfx::ld_u32(wrow + 8);
+        for (int nt = 0; nt < 2; ++nt) {
+          const __nv_bfloat16* wrow = &ws[warp * 16 + nt * 8 + g][c];
+          b[nt][0] = pfx::ld_u32(wrow);
+          b[nt][1] = pfx::ld_u32(wrow + 8);
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
@@ -160,21 +199,23 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
   }
 
-  // write-out: the scale of each column, then the cast
+  // write-out: the scale of each column (the forward), then the cast
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) {
     const int col = n0 + warp * 16 + nt * 8 + t * 2;
-    const float s0 = scale[col];
-    const float s1 = scale[col + 1];
+    const float s0 = kDx ? 1.f : scale[col];
+    const float s1 = kDx ? 1.f : scale[col + 1];
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + mt * 16 + g + 8 * half;
         if (mt < live_mt && row < M) {
+          const float v0 = acc[mt][nt][2 * half];
+          const float v1 = acc[mt][nt][2 * half + 1];
           *reinterpret_cast<uint32_t*>(out + (long long)row * N + col) =
-              pfx::pack_bf16(__fmul_rn(acc[mt][nt][2 * half], s0),
-                             __fmul_rn(acc[mt][nt][2 * half + 1], s1));
+              kDx ? pfx::pack_bf16(v0, v1)
+                  : pfx::pack_bf16(__fmul_rn(v0, s0), __fmul_rn(v1, s1));
         }
       }
     }
@@ -186,6 +227,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 constexpr int kF32Threads = 256;
 constexpr int kF32BK = 32;
 
+// The fp32 twin of qmm_mma_kernel, the same operands and kDx.
+template <bool kDx>
 __global__ void __launch_bounds__(kF32Threads)
     qmm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ scale, float* __restrict__ out,
@@ -223,15 +266,28 @@ __global__ void __launch_bounds__(kF32Threads)
       xs[c4 + 3][r] = v.w;
     }
     if (tid < kBN * kF32BK / 16) {
-      const int col = tid / (kF32BK / 16);
-      const int c16 = (tid % (kF32BK / 16)) * 16;
-      const uint4 r =
-          pfx::load_raw(w + (long long)(n0 + col) * K + k0 + c16);
-      const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+      if constexpr (kDx) {
+        // a row of k, 16 output columns n as read
+        const int kr = tid / (kBN / 16);
+        const int c16 = (tid % (kBN / 16)) * 16;
+        const uint4 r =
+            pfx::load_raw(w + (long long)(k0 + kr) * N + n0 + c16);
+        const uint32_t words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-      for (int e = 0; e < 16; ++e)
-        ws[c16 + e][col] = static_cast<float>(
-            static_cast<int8_t>((words[e / 4] >> (8 * (e % 4))) & 0xffu));
+        for (int e = 0; e < 16; ++e)
+          ws[kr][c16 + e] = static_cast<float>(static_cast<int8_t>(
+              (words[e / 4] >> (8 * (e % 4))) & 0xffu));
+      } else {
+        const int col = tid / (kF32BK / 16);
+        const int c16 = (tid % (kF32BK / 16)) * 16;
+        const uint4 r =
+            pfx::load_raw(w + (long long)(n0 + col) * K + k0 + c16);
+        const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          ws[c16 + e][col] = static_cast<float>(static_cast<int8_t>(
+              (words[e / 4] >> (8 * (e % 4))) & 0xffu));
+      }
     }
     __syncthreads();
 #pragma unroll 8
@@ -249,18 +305,42 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 
   const int col = n0 + tx * 4;
-  const float4 s = *reinterpret_cast<const float4*>(scale + col);
+  const float4 s = kDx ? make_float4(1.f, 1.f, 1.f, 1.f)
+                       : *reinterpret_cast<const float4*>(scale + col);
   const float sv[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
     if (row < M) {
       *reinterpret_cast<float4*>(out + (long long)row * N + col) =
-          make_float4(__fmul_rn(acc[i][0], sv[0]), __fmul_rn(acc[i][1], sv[1]),
-                      __fmul_rn(acc[i][2], sv[2]),
-                      __fmul_rn(acc[i][3], sv[3]));
+          kDx ? make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3])
+              : make_float4(__fmul_rn(acc[i][0], sv[0]),
+                            __fmul_rn(acc[i][1], sv[1]),
+                            __fmul_rn(acc[i][2], sv[2]),
+                            __fmul_rn(acc[i][3], sv[3]));
     }
   }
+}
+
+template <bool kDx>
+int launch(const void* x, const int8_t* w, const float* scale, void* out,
+           int m, int n, int k, int is_bf16, cudaStream_t st) {
+  const dim3 grid(n / kBN, (m + kBM - 1) / kBM);
+  if (is_bf16) {
+    qmm_mma_kernel<kDx><<<grid, kMmaThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), w, scale,
+        static_cast<__nv_bfloat16*>(out), m, n, k);
+  } else {
+    qmm_f32_kernel<kDx><<<grid, kF32Threads, 0, st>>>(
+        static_cast<const float*>(x), w, scale, static_cast<float*>(out), m,
+        n, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int m, int n, int k) {
+  return m <= 0 || n <= 0 || k <= 0 || n % 128 || k % 128 ||
+         (m + kBM - 1) / kBM > 65535;
 }
 
 }  // namespace
@@ -273,20 +353,21 @@ extern "C" int pfx_quantized_matmul(const void* x, const void* w,
                                     const float* scale, void* out, int m,
                                     int n, int k, int is_bf16,
                                     void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || n % 128 || k % 128 ||
-      (m + kBM - 1) / kBM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n / kBN, (m + kBM - 1) / kBM);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* wq = static_cast<const int8_t*>(w);
-  if (is_bf16) {
-    qmm_mma_kernel<<<grid, kMmaThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), wq, scale,
-        static_cast<__nv_bfloat16*>(out), m, n, k);
-  } else {
-    qmm_f32_kernel<<<grid, kF32Threads, 0, st>>>(
-        static_cast<const float*>(x), wq, scale, static_cast<float*>(out), m,
-        n, k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (bad_shape(m, n, k)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(x, static_cast<const int8_t*>(w), scale, out, m, n, k,
+                       is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 7's dx route: dx [m, k] = gs [m, n] @ w [n, k], in gs's type
+// (bf16 when is_bf16, else fp32), w the forward's int8 weight as stored
+// (k contiguous), no scale. k and n are multiples of 128; every pointer
+// is 16-byte aligned and contiguous. Returns a cudaError_t: 0 on a
+// successful launch; runs on `stream` and does not synchronise.
+extern "C" int pfx_quantized_matmul_dx(const void* gs, const void* w,
+                                       void* dx, int m, int n, int k,
+                                       int is_bf16, void* stream) {
+  if (bad_shape(m, n, k)) return static_cast<int>(cudaErrorInvalidValue);
+  // the kernel's reduction axis is n here, its output axis k
+  return launch<true>(gs, static_cast<const int8_t*>(w), nullptr, dx, m, k,
+                      n, is_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -4,12 +4,17 @@
 Same fields, defaults and ``from_config`` as the JAX package, so one
 YAML ``Model`` section builds either model. The knobs whose code paths
 this port does not have yet raise ``NotImplementedError`` at
-construction instead of being ignored: LoRA, context parallelism and
+construction instead of being ignored: context parallelism and
 unfused q/k/v projections. The MoE knobs act on the training path
 (``models/gpt/moe.py``) and are validated as in the JAX package
 (``1 <= moe_top_k <= moe_num_experts``, ``moe_capacity_factor > 0``, a
-known ``moe_dispatch``, no LoRA beside MoE); serving an MoE model is a
-later slice (``GenerationServer`` and ``generate()`` raise). The
+known ``moe_dispatch``); serving an MoE model is a
+later slice (``GenerationServer`` and ``generate()`` raise). The LoRA
+knobs (``lora_rank``, ``lora_num_adapters``, ``lora_alpha``) act: each
+dense site carries a bank of adapters (``model.py::LoRADelta``), with
+the JAX package's validation word for word (no negative rank or alpha,
+at least two bank rows, fused q/k/v, no MoE) and its
+:attr:`GPTConfig.lora_scale`. The
 serving path's int8 knobs act:
 ``kv_cache_dtype: int8`` (an int8 KV cache with fp32 scales, read by
 the decode kernels' int8 instances) and ``quant_execution:
@@ -154,14 +159,35 @@ class GPTConfig:
                 raise ValueError(
                     f"unknown moe_dispatch {self.moe_dispatch!r} "
                     f"(expected 'einsum', 'sort' or 'sort_pallas')")
-        if self.lora_rank and self.moe_num_experts:
+        if self.lora_rank < 0:
             raise ValueError(
-                "lora_rank > 0 is incompatible with moe_num_experts > 0: "
-                "the MoE block replaces the fc1/fc2 sites the adapter "
-                "pair rides on")
+                f"lora_rank must be >= 0, got {self.lora_rank}")
+        if self.lora_alpha < 0:
+            raise ValueError(
+                f"lora_alpha must be >= 0, got {self.lora_alpha}")
+        if self.lora_num_adapters and not self.lora_rank:
+            raise ValueError(
+                f"lora_num_adapters ({self.lora_num_adapters}) is set "
+                f"but lora_rank is 0; multi-tenant LoRA needs both")
+        if self.lora_rank:
+            if self.lora_num_adapters < 2:
+                raise ValueError(
+                    f"lora_num_adapters ({self.lora_num_adapters}) "
+                    f"must be >= 2 with lora_rank > 0 — row 0 is the "
+                    f"reserved zero adapter (base model), so at least "
+                    f"one real adapter row must exist")
+            if not self.fuse_attn_qkv:
+                raise ValueError(
+                    "lora_rank > 0 requires fuse_attn_qkv=True: the "
+                    "adapter sites are exactly qkv/out-proj/fc1/fc2; "
+                    "the non-fused q/k/v projections carry no adapter "
+                    "pair and would silently serve partial adapters")
+            if self.moe_num_experts:
+                raise ValueError(
+                    "lora_rank > 0 is incompatible with "
+                    "moe_num_experts > 0: the MoE block replaces the "
+                    "fc1/fc2 sites the adapter pair rides on")
         unported = {
-            "lora_rank": self.lora_rank != 0,
-            "lora_num_adapters": self.lora_num_adapters != 0,
             "context_parallel": self.context_parallel,
             "fuse_attn_qkv": not self.fuse_attn_qkv,
         }
@@ -169,8 +195,8 @@ class GPTConfig:
         if asked:
             raise NotImplementedError(
                 f"GPTConfig knobs not ported to the PyTorch package yet: "
-                f"{asked} (LoRA, context parallelism and unfused q/k/v "
-                f"are later slices)")
+                f"{asked} (context parallelism and unfused q/k/v are "
+                f"later slices)")
 
     @property
     def head_dim(self) -> int:
@@ -184,6 +210,17 @@ class GPTConfig:
         rounding was a TPU tile rule; it is kept so both packages size
         their caches alike)."""
         return -(-self.max_position_embeddings // 128) * 128
+
+    @property
+    def lora_scale(self) -> float:
+        """Effective LoRA delta scale ``alpha / rank`` (1.0 when
+        ``lora_alpha`` is 0.0, the alpha = rank convention; 0.0 with
+        LoRA off)."""
+        if not self.lora_rank:
+            return 0.0
+        if not self.lora_alpha:
+            return 1.0
+        return self.lora_alpha / self.lora_rank
 
     @property
     def max_kv_pages(self) -> int:

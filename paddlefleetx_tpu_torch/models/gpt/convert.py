@@ -24,7 +24,11 @@ Layouts (flax -> torch, ``nn.Linear`` stores ``[out, in]``):
 - an MoE block's ``moe_mlp`` leaves (``router_kernel [h, E]``, ``wi [E,
   h, m]``, ``wi_bias [E, m]``, ``wo [E, m, h]``, ``wo_bias [E, h]``) in
   place of ``linear1`` / ``linear2``, as they are: the port keeps the
-  JAX names and layouts.
+  JAX names and layouts;
+- a LoRA model's (``lora_rank > 0``) adapter banks, ``lora_a [A, K,
+  r]`` and ``lora_b [A, r, N]`` of ``qkv_proj_lora`` / ``out_proj_lora``
+  (under ``self_attn``) and ``linear1_lora`` / ``linear2_lora``, as they
+  are: the port keeps the JAX layout there too.
 
 The decoder stack comes either unrolled (``decoder_{i}`` subtrees) or
 scanned (one ``decoder`` subtree whose leaves lead with the layer
@@ -58,6 +62,12 @@ _SITES = (("self_attn.qkv_proj", ("self_attn", "qkv_proj")),
           ("linear1", ("linear1",)), ("linear2", ("linear2",)))
 #: the leaves of an MoE block's ``moe_mlp``, the same in both packages
 _MOE_LEAVES = ("router_kernel", "wi", "wi_bias", "wo", "wo_bias")
+#: the LoRA bank sites of a layer, by their torch prefix and flax path
+_LORA_SITES = (("self_attn.qkv_proj_lora", ("self_attn", "qkv_proj_lora")),
+               ("self_attn.out_proj_lora", ("self_attn", "out_proj_lora")),
+               ("linear1_lora", ("linear1_lora",)),
+               ("linear2_lora", ("linear2_lora",)))
+_LORA_LEAVES = ("lora_a", "lora_b")
 
 
 def _layer_from_flax(p: Mapping, cfg: GPTConfig) -> Dict[str, np.ndarray]:
@@ -89,6 +99,13 @@ def _layer_from_flax(p: Mapping, cfg: GPTConfig) -> Dict[str, np.ndarray]:
         if "kernel_scale" in site:
             out[prefix + ".weight_scale"] = \
                 _np(site["kernel_scale"]).reshape(-1)
+    for prefix, path in _LORA_SITES:
+        site = p
+        for name in path:
+            site = site.get(name, {})
+        for leaf in _LORA_LEAVES:
+            if leaf in site:
+                out[f"{prefix}.{leaf}"] = _np(site[leaf])
     return out
 
 
@@ -122,6 +139,13 @@ def _layer_to_flax(sd: Mapping[str, np.ndarray], cfg: GPTConfig) -> dict:
                 site = site[name]
             site["kernel_scale"] = scale.reshape(
                 (3, nh, hd) if path[-1] == "qkv_proj" else (-1,))
+    for prefix, path in _LORA_SITES:
+        if prefix + ".lora_a" in sd:
+            site = tree
+            for name in path[:-1]:
+                site = site[name]
+            site[path[-1]] = {leaf: sd[f"{prefix}.{leaf}"]
+                              for leaf in _LORA_LEAVES}
     return tree
 
 

@@ -329,16 +329,20 @@ def init_slot_cache(model: GPTForPretraining, num_slots: int) -> KVCache:
 def prefill_into_slots(model: GPTForPretraining, cache: KVCache,
                        state: SlotState, slot_ids: Sequence[int],
                        input_ids: torch.Tensor, true_lengths: Sequence[int],
-                       nonces: Sequence[int]) -> None:
+                       nonces: Sequence[int],
+                       adapter_ids: Optional[torch.Tensor] = None) -> None:
     """Admit requests into free slots, in place: prefill the RIGHT-padded
     ``input_ids [n, bucket]`` (prompts start at cache position 0; the
     pad tail past ``true_lengths`` is causally masked during prefill and
     length-masked during decode) straight into cache rows ``slot_ids``,
-    and set those slots' state from each row's last real token."""
+    and set those slots' state from each row's last real token.
+    ``adapter_ids [n]`` (int32 LoRA bank rows) tint each row's KV and
+    logits with its adapter; None serves the base model."""
     dev = model.word_embeddings.device
     n, bucket = input_ids.shape
     rows = torch.as_tensor(list(slot_ids), device=dev)
-    hidden = model.gpt(input_ids, cache=cache, cache_rows=rows)
+    hidden = model.gpt(input_ids, cache=cache, cache_rows=rows,
+                       adapter_ids=adapter_ids)
     last = torch.as_tensor([t - 1 for t in true_lengths], device=dev)
     state.last_logits[rows] = _last_logits(
         model, hidden[torch.arange(n, device=dev), last])
@@ -361,7 +365,8 @@ def prefill_into_slots(model: GPTForPretraining, cache: KVCache,
 @torch.no_grad()
 def decode_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
                 gen_cfg: GenerationConfig, seed: int = 0,
-                page_table: Optional[torch.Tensor] = None) -> List[int]:
+                page_table: Optional[torch.Tensor] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> List[int]:
     """One decode tick over every slot, in place: sample from each
     slot's ``last_logits`` (min-length over its own ``dec_count``,
     sampling stream ``stream_seed(seed, nonce, dec_count)``), write the
@@ -370,8 +375,9 @@ def decode_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
     max_pages]`` through the page pool ``cache`` and the paged decode
     kernel. Free and finished slots ride along as pad tokens with
     frozen lengths (their writes are overwritten before any read, or
-    land in the null page). Returns the token each slot emitted (pad
-    where inactive)."""
+    land in the null page). ``adapter_ids [slots]`` (int32 LoRA bank
+    rows) select each slot's adapter. Returns the token each slot
+    emitted (pad where inactive)."""
     dev = state.last_logits.device
     slots = len(state.lengths)
     dec = torch.as_tensor(state.dec_count, device=dev)[:, None]
@@ -386,7 +392,8 @@ def decode_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
     lengths = torch.as_tensor(state.lengths, dtype=torch.int32, device=dev)
     pos = lengths.clamp(0, model.config.max_position_embeddings - 1)
     hidden = model.gpt(token[:, None], pos[:, None].long(), cache=cache,
-                       decode_offset=lengths, page_table=page_table)
+                       decode_offset=lengths, page_table=page_table,
+                       adapter_ids=adapter_ids)
     state.last_logits = _last_logits(model, hidden[:, -1])
     tokens = token.tolist()
     for i in range(slots):
@@ -416,7 +423,8 @@ def accept_uniform(seed: int, nonce: int, step: int) -> float:
 @torch.no_grad()
 def verify_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
                 drafts: Sequence[Sequence[int]], gen_cfg: GenerationConfig,
-                seed: int = 0, page_table: Optional[torch.Tensor] = None
+                seed: int = 0, page_table: Optional[torch.Tensor] = None,
+                adapter_ids: Optional[torch.Tensor] = None
                 ) -> Tuple[List[List[int]], List[int]]:
     """One SPECULATIVE tick, in place: score ``k`` drafted tokens per
     slot in a single forward and commit the accepted prefix (+1 sampled
@@ -443,6 +451,9 @@ def verify_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
        Sampling: ``u < p(d_j)`` with ``u`` from :func:`accept_uniform`
        and ``p`` the filtered distribution; a rejected draft is
        recorded in ``rejected`` for the next tick's residual.
+
+    ``adapter_ids [slots]`` (int32 LoRA bank rows) select each slot's
+    adapter for the whole window.
 
     Rejected KV needs no device-side undo: lengths advance only by the
     committed count, and the next window overwrites the stale columns
@@ -473,7 +484,7 @@ def verify_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
     pos = (lengths.long()[:, None] + torch.arange(k + 1, device=dev)[None]
            ).clamp(0, model.config.max_position_embeddings - 1)
     hidden = model.gpt(window, pos, cache=cache, decode_offset=lengths,
-                       page_table=page_table)
+                       page_table=page_table, adapter_ids=adapter_ids)
     logits_w = _last_logits(model, hidden)                 # [slots, k+1, V]
 
     sampling = gen_cfg.decode_strategy == "sampling"
@@ -540,7 +551,8 @@ def prefill_chunk_paged(model: GPTForPretraining, pool: KVCache,
                         input_chunk: torch.Tensor,
                         chunk_start: torch.Tensor,
                         page_table: torch.Tensor,
-                        logit_rows: Optional[torch.Tensor] = None
+                        logit_rows: Optional[torch.Tensor] = None,
+                        adapter_ids: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """One page-aligned chunk of a chunked prefill, in place.
 
@@ -554,14 +566,15 @@ def prefill_chunk_paged(model: GPTForPretraining, pool: KVCache,
     position through the page table (the gather + dense route, as in
     the JAX package). Returns fp32 logits ``[n, chunk, V]``, or with
     ``logit_rows [n]`` only those rows' ``[n, V]`` (the server wants
-    the last prompt token's)."""
+    the last prompt token's). ``adapter_ids [n]`` (int32 LoRA bank
+    rows) select each row's adapter."""
     n, c = input_chunk.shape
     dev = input_chunk.device
     start = torch.as_tensor(chunk_start, device=dev).long()
     pos = (start[:, None] + torch.arange(c, device=dev)[None, :]).clamp(
         0, model.config.max_position_embeddings - 1)
     hidden = model.gpt(input_chunk, pos, cache=pool, page_table=page_table,
-                       chunk_start=start)
+                       chunk_start=start, adapter_ids=adapter_ids)
     if logit_rows is not None:
         hidden = hidden[torch.arange(n, device=dev),
                         torch.as_tensor(logit_rows, device=dev).long()]

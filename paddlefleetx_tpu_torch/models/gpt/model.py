@@ -52,6 +52,14 @@ Under ``quant_execution: weight_only_int8`` the four dense sites (qkv,
 out, fc1, fc2) are :class:`QuantLinear`: an int8 weight and fp32 scales
 through the int8 matmul kernel (``ops/cuda/quantized_matmul.py``).
 
+With ``lora_rank > 0`` each of those four sites also carries a bank of
+adapters (:class:`LoRADelta`: ``qkv_proj_lora``, ``out_proj_lora``,
+``linear1_lora``, ``linear2_lora``), whose delta is added after the
+site's bias for the bank rows the forward's ``adapter_ids`` name (one a
+batch row; row 0 is the base model), through the grouped GEMM
+(``ops/lora.py``). Without ``adapter_ids`` the delta is zero and runs
+nothing, as in the JAX package.
+
 With ``moe_num_experts > 0`` each block's FFN is ``moe_mlp``, the routed
 experts of ``moe.py`` (under ``sort_pallas`` on the grouped GEMM,
 kernels 8 and 9); each block returns its router auxiliary loss beside
@@ -77,6 +85,7 @@ from ...ops.attention import dot_product_attention
 from ...ops.cuda import flash_attention as fa
 from ...ops.cuda import grouped_matmul  # noqa: F401 (pfx::grouped_matmul)
 from ...ops.cuda import quantized_matmul as qmm
+from ...ops.lora import grouped_lora_delta
 from .config import GPTConfig
 
 #: per layer ``(k, v)``, or ``(k, v, k_scale, v_scale)`` for an int8 cache
@@ -194,8 +203,9 @@ class QuantLinear(nn.Module):
     (``quant/matmul``); any other takes the JAX package's own per-site
     route, dequantize then matmul (``quant/fallback/kernel_rejected``).
     The scales stay fp32 whatever dtype the module is cast to, as the
-    JAX scales do. Its gradient is not ported: a backward through the
-    kernel raises.
+    JAX scales do. The weight and scales are frozen (buffers, no
+    gradient); the input's gradient runs kernel 7's dx route, as the
+    JAX package's ``_quantized_matmul_bwd`` does.
     """
 
     def __init__(self, in_features: int, out_features: int):
@@ -233,6 +243,54 @@ class QuantLinear(nn.Module):
         return (y + self.bias.to(y.dtype)).view(*lead, self.out_features)
 
 
+class LoRADelta(nn.Module):
+    """The stacked multi-adapter LoRA delta of one dense site
+    (``lora_rank > 0``; the port of the JAX package's ``_LoRADelta``).
+
+    It holds ``lora_a [A, K, r]`` (the dense initializer's normal) and
+    ``lora_b [A, r, N]`` (zeros: a fresh bank is a zero delta), A =
+    ``lora_num_adapters`` bank rows, in the JAX layout (not
+    ``nn.Linear``'s: the grouped GEMM reads ``w [Gw, K, N]``). Row 0 is
+    the reserved zero adapter: its rows are zeroed before the GEMMs and
+    masked after them, so adapter id 0 reproduces the base model
+    exactly whatever the bank holds. The base site (``nn.Linear`` or
+    :class:`QuantLinear`) is unchanged beside it.
+    """
+
+    def __init__(self, cfg: GPTConfig, in_features: int, out_features: int):
+        super().__init__()
+        self.cfg = cfg
+        self.out_features = out_features
+        self.lora_a = nn.Parameter(torch.empty(
+            cfg.lora_num_adapters, in_features, cfg.lora_rank))
+        self.lora_b = nn.Parameter(torch.zeros(
+            cfg.lora_num_adapters, cfg.lora_rank, out_features))
+
+    def forward(self, x: torch.Tensor,
+                adapter_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        """``scale * (x @ A[id]) @ B[id]`` over the last dim of ``x [b,
+        ..., K]`` in the compute dtype, one bank row ``adapter_ids[i]``
+        for every position of batch row ``i``; zeros, computing nothing,
+        when ``adapter_ids`` is None. Counts ``lora/grouped``."""
+        out_shape = x.shape[:-1] + (self.out_features,)
+        if adapter_ids is None:
+            return x.new_zeros(out_shape)
+        dtype = compute_dtype(self.cfg)
+        x2 = x.to(dtype).reshape(-1, x.shape[-1])
+        ids = torch.as_tensor(adapter_ids, device=x.device).long()
+        ids = ids.repeat_interleave(x2.shape[0] // x.shape[0])
+        live = (ids != 0)[:, None]
+        x2 = torch.where(live, x2, torch.zeros_like(x2))
+        d = grouped_lora_delta(x2, ids, self.lora_a.to(dtype),
+                               self.lora_b.to(dtype))
+        metrics.inc("lora/grouped")
+        # the scale rounded to the compute dtype on the host, as JAX
+        # rounds it (a device tensor would cost a copy and a sync a site)
+        d = d * float(torch.tensor(self.cfg.lora_scale, dtype=dtype))
+        d = torch.where(live, d, torch.zeros_like(d))
+        return d.reshape(out_shape).to(x.dtype)
+
+
 def _dense(cfg: GPTConfig, in_features: int, out_features: int
            ) -> nn.Module:
     """A dense site: ``nn.Linear``, or :class:`QuantLinear` under
@@ -262,13 +320,19 @@ class MultiHeadAttention(nn.Module):
         self.cfg = cfg
         self.qkv_proj = _dense(cfg, cfg.hidden_size, 3 * cfg.hidden_size)
         self.out_proj = _dense(cfg, cfg.hidden_size, cfg.hidden_size)
+        if cfg.lora_rank:
+            self.qkv_proj_lora = LoRADelta(cfg, cfg.hidden_size,
+                                           3 * cfg.hidden_size)
+            self.out_proj_lora = LoRADelta(cfg, cfg.hidden_size,
+                                           cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
                 kv: Optional[Tuple[torch.Tensor, ...]],
                 cache_rows: Optional[torch.Tensor],
                 decode_offset: Union[int, torch.Tensor, None],
                 dropout_seed: Optional[int] = None,
-                paged: Optional[PagedWrite] = None) -> torch.Tensor:
+                paged: Optional[PagedWrite] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Attention of ``x [b, s, hidden]``.
 
         Without ``kv``: causal attention over x itself, with the
@@ -283,13 +347,17 @@ class MultiHeadAttention(nn.Module):
         attend over the cache, query ``j`` up to ``offset + j``. With
         ``paged`` (:func:`page_write`, resolved once per forward) ``kv``
         is the page pool: the tokens land where ``paged`` points and
-        attention reads through its page table.
+        attention reads through its page table. ``adapter_ids [b]``
+        (bank rows) add the LoRA deltas of ``qkv_proj`` and ``out_proj``.
         """
         cfg = self.cfg
         b, s, _ = x.shape
         nh, hd = cfg.num_attention_heads, cfg.head_dim
         with _site("attn"):
-            qkv = self.qkv_proj(x).view(b, s, 3, nh, hd)
+            qkv = self.qkv_proj(x)
+            if cfg.lora_rank:
+                qkv = qkv + self.qkv_proj_lora(x, adapter_ids)
+            qkv = qkv.view(b, s, 3, nh, hd)
             q, k, v = (t.contiguous() for t in qkv.unbind(2))  # [b,s,nh,hd]
         use_flash = cfg.use_flash_attention
         # what lands in the cache: k and v, or under the int8 cache their
@@ -365,8 +433,12 @@ class MultiHeadAttention(nn.Module):
                                         causal=True, query_offset=offset,
                                         use_flash=use_flash,
                                         kv_cache_layout=True, **scales)
+        attn_inner = out.reshape(b, s, nh * hd)
         with _site("attn_out"):
-            return self.out_proj(out.reshape(b, s, nh * hd))
+            out = self.out_proj(attn_inner)
+            if cfg.lora_rank:
+                out = out + self.out_proj_lora(attn_inner, adapter_ids)
+            return out
 
 
 class PagedWrite(NamedTuple):
@@ -433,10 +505,16 @@ class TransformerDecoderLayer(nn.Module):
         else:
             self.linear1 = _dense(cfg, cfg.hidden_size, cfg.ffn_hidden_size)
             self.linear2 = _dense(cfg, cfg.ffn_hidden_size, cfg.hidden_size)
+            if cfg.lora_rank:
+                self.linear1_lora = LoRADelta(cfg, cfg.hidden_size,
+                                              cfg.ffn_hidden_size)
+                self.linear2_lora = LoRADelta(cfg, cfg.ffn_hidden_size,
+                                              cfg.hidden_size)
 
     def forward(self, x, attn_bias=None, kv=None, cache_rows=None,
-                decode_offset=None, dropout_seed=None, paged=None):
-        """One block; the cache arguments are
+                decode_offset=None, dropout_seed=None, paged=None,
+                adapter_ids=None):
+        """One block; the cache arguments and ``adapter_ids`` are
         :meth:`MultiHeadAttention.forward`'s, ``dropout_seed`` the
         block's (None: no dropout). Returns the block's output, and with
         ``moe_num_experts > 0`` the pair ``(output, router aux loss)``."""
@@ -447,17 +525,24 @@ class TransformerDecoderLayer(nn.Module):
             return fold_seed(dropout_seed, site) if drop else None
 
         y = self.self_attn(self.norm1(x), attn_bias, kv, cache_rows,
-                           decode_offset, seed(0), paged)
+                           decode_offset, seed(0), paged, adapter_ids)
         x = x + hidden_dropout(y, rate, seed(1))
         if self.cfg.moe_num_experts:
             y, aux = self.moe_mlp(self.norm2(x),
                                   seed(self.moe_mlp.DROPOUT_SITE))
             return x + hidden_dropout(y, rate, seed(2)), aux
+        lora = self.cfg.lora_rank
         with _site("mlp1"):
-            y = self.linear1(self.norm2(x))
+            mlp_in = self.norm2(x)
+            y = self.linear1(mlp_in)
+            if lora:
+                y = y + self.linear1_lora(mlp_in, adapter_ids)
         y = F.gelu(y, approximate="tanh")
         with _site("mlp2"):
-            y = self.linear2(y)
+            mlp_mid = y
+            y = self.linear2(mlp_mid)
+            if lora:
+                y = y + self.linear2_lora(mlp_mid, adapter_ids)
         return x + hidden_dropout(y, rate, seed(2))
 
 
@@ -503,7 +588,8 @@ class GPTModel(nn.Module):
                 dropout_seed: Optional[int] = None,
                 page_table: Optional[torch.Tensor] = None,
                 chunk_start: Optional[torch.Tensor] = None,
-                return_aux: bool = False):
+                return_aux: bool = False,
+                adapter_ids: Optional[torch.Tensor] = None):
         """Hidden states ``[b, s, hidden]`` after the final norm (cache
         arguments as in :meth:`MultiHeadAttention.forward`; ``cache``
         is one ``(k, v)`` pair per layer, the page pools with a
@@ -515,7 +601,8 @@ class GPTModel(nn.Module):
         gradients enabled each block runs under activation
         checkpointing. With ``return_aux`` the pair ``(hidden states, the
         MoE router aux loss summed over the blocks)``, the loss None for
-        a dense model."""
+        a dense model. ``adapter_ids [b]`` (int bank rows, 0 the base
+        model) select each row's LoRA adapter; None computes no delta."""
         cfg = self.cfg
         s = input_ids.shape[-1]
         if position_ids is None:
@@ -540,13 +627,15 @@ class GPTModel(nn.Module):
             seed = fold_seed(dropout_seed, i + 1) if drop else None
             if recompute:
                 x = ckpt.checkpoint(layer, x, attn_bias, None, None, None,
-                                    seed, use_reentrant=False,
+                                    seed, None, adapter_ids,
+                                    use_reentrant=False,
                                     preserve_rng_state=False,
                                     context_fn=self._context_fn)
             else:
                 x = layer(x, attn_bias,
                           cache[i] if cache is not None else None,
-                          cache_rows, decode_offset, seed, paged)
+                          cache_rows, decode_offset, seed, paged,
+                          adapter_ids)
             if aux is not None:
                 x, layer_aux = x
                 aux = aux + layer_aux
@@ -575,13 +664,15 @@ class GPTForPretraining(nn.Module):
     def forward(self, input_ids, position_ids=None, attn_bias=None,
                 cache=None, cache_rows=None, decode_offset=None,
                 dropout_seed=None, page_table=None,
-                chunk_start=None, return_aux: bool = False):
+                chunk_start=None, return_aux: bool = False,
+                adapter_ids=None):
         """Logits ``[b, s, vocab]``, with ``return_aux`` the pair
         ``(logits, MoE aux loss)`` (arguments as in
         :meth:`GPTModel.forward`)."""
         x, aux = self.gpt(input_ids, position_ids, attn_bias, cache,
                           cache_rows, decode_offset, dropout_seed,
-                          page_table, chunk_start, return_aux=True)
+                          page_table, chunk_start, return_aux=True,
+                          adapter_ids=adapter_ids)
         logits = tied_logits(x, self.word_embeddings)
         return (logits, aux) if return_aux else logits
 
@@ -652,17 +743,18 @@ def chunked_lm_loss(model: GPTForPretraining, input_ids: torch.Tensor,
 @torch.no_grad()
 def init_weights(model: GPTForPretraining, seed: int) -> None:
     """Random weights from ``seed``, drawn on the model's device with a
-    ``torch.Generator``: embeddings, dense kernels and the MoE leaves
-    ``router_kernel`` / ``wi`` / ``wo`` ~ N(0, ``initializer_range``),
-    biases (``wi_bias`` and ``wo_bias`` too) 0, LayerNorm scale 1 and
-    bias 0 (the JAX package's initializers; the numbers differ)."""
+    ``torch.Generator``: embeddings, dense kernels, the MoE leaves
+    ``router_kernel`` / ``wi`` / ``wo`` and the LoRA ``lora_a`` banks ~
+    N(0, ``initializer_range``), biases (``wi_bias`` and ``wo_bias``
+    too) and the ``lora_b`` banks 0, LayerNorm scale 1 and bias 0 (the
+    JAX package's initializers; the numbers differ)."""
     std = model.config.initializer_range
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     for name, p in model.named_parameters():
         if "norm" in name:
             p.fill_(1.0 if name.endswith("weight") else 0.0)
-        elif name.endswith("bias"):
+        elif name.endswith(("bias", "lora_b")):
             p.zero_()
         else:
             p.copy_(torch.randn(p.shape, generator=gen, device=dev,
@@ -684,12 +776,16 @@ def build_model(cfg: GPTConfig, device: torch.device,
     any fp dense weight it holds, or the fp32 weights drawn from
     ``seed`` when it is None, quantized here first (the JAX workflow
     "train, quantize the checkpoint, serve"), before the cast to the
-    compute dtype."""
+    compute dtype. Such a model still back-propagates into its floating
+    leaves (LoRA banks, biases, norms, embeddings) through kernel 7's dx
+    route, what ``jax.grad`` over the floating subtree gives in the JAX
+    package."""
     quant = cfg.quant_execution == "weight_only_int8"
     if quant and train:
         raise NotImplementedError(
-            "training under quant_execution is not ported: the int8 "
-            "matmul's gradient is a later slice")
+            "training under quant_execution is refused as the JAX engine "
+            "refuses it: its step differentiates the whole params tree, "
+            "and JAX cannot differentiate int8 leaves")
     with torch.device(device):
         model = GPTForPretraining(cfg)
     if quant:

@@ -1,8 +1,10 @@
 """Minimal counter / gauge / timer registry of the port.
 
 The counter names are the JAX package's (``docs/attention_dispatch.md``
-for ``attention/*``, ``docs/inference.md`` for ``serving/*``), so a run
-of either package reads the same way. One process-global registry
+for ``attention/*``, ``docs/inference.md`` for ``serving/*``,
+``docs/lora.md`` for ``lora/*`` and the adapter cache's
+``serving/adapter_*``), so a run of either package reads the same way;
+a name needs no declaration before its first ``inc``. One process-global registry
 (:func:`get_registry`) collects the dispatch and serving counters; it
 is disabled until a caller turns it on (:func:`set_enabled`), and then
 ``inc`` is one boolean test. Unlike the JAX package, where dispatch

@@ -56,6 +56,7 @@ SIGNATURES = {
     "pfx_flash_decode_paged_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       _I, _I, _I, _I, _I, _F, _I, _P],
     "pfx_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pfx_quantized_matmul_dx": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pfx_grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL,
                            _LL, _I, _P],
     "pfx_grouped_matmul_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

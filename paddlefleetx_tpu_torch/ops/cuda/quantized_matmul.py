@@ -17,10 +17,14 @@ own per-site route, dequantize then matmul (``models/gpt/model.py::
 QuantLinear``). The JAX rule ``M % 8 == 0`` was a TPU tiling rule: the
 kernel masks the M edge and takes every M.
 
-The gradient is not ported: the JAX VJP computes dx through the same
-kernel (``_quantized_matmul_bwd``, ``:129-145``); here a backward
-through :func:`quantized_matmul` raises ``NotImplementedError`` rather
-than return no gradient.
+The gradient is the JAX VJP's (``_quantized_matmul_bwd``,
+``:129-145``): ``dx = gs @ w`` with ``gs = (g.float() * scale)`` rounded
+to g's dtype first, fp32 accumulation, dx in g's dtype, through kernel
+7's dx route (:func:`quantized_matmul_dx`: a second instance of the
+kernel that reads the same ``[N, K]`` int8 storage the other way, no
+copy). The weight is a frozen PTQ artifact and the scales calibration
+constants: neither gets a gradient. dx launches count in
+``quantized_matmul.dx_launches``.
 """
 
 from __future__ import annotations
@@ -92,21 +96,78 @@ def _launch(x, w, scale) -> torch.Tensor:
     return out
 
 
+def quantized_matmul_dx_reference(gs: torch.Tensor,
+                                  w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quantized_matmul_dx`: ``(gs.float()
+    @ w.float()).to(gs.dtype)``."""
+    return (gs.float() @ w.float()).to(gs.dtype)
+
+
+def quantized_matmul_dx(gs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel 7's dx route: ``gs [M, N] @ w [N, K]`` with an fp32
+    accumulator, out ``[M, K]`` in gs's dtype (bf16 or fp32), ``w`` the
+    forward's int8 weight as stored; ``gs`` is the output gradient
+    already scaled and rounded (:class:`_QuantizedMatmul`). On CPU
+    tensors the plain version runs; on CUDA tensors the kernel launches
+    (K and N multiples of 128) or this raises."""
+    if gs.dim() != 2 or w.dim() != 2 or gs.shape[1] != w.shape[0] or \
+            w.dtype != torch.int8:
+        raise ValueError(f"quantized_matmul_dx: gs {tuple(gs.shape)}, w "
+                         f"{tuple(w.shape)} {w.dtype} are not [M, N], int8 "
+                         f"[N, K]")
+    if gs.device.type == "cpu" and w.device.type == "cpu":
+        return quantized_matmul_dx_reference(gs, w)
+    m, n = gs.shape
+    k = w.shape[1]
+    if gs.dtype not in _DTYPES:
+        raise ValueError(f"quantized_matmul_dx: gs is {gs.dtype}; the "
+                         f"kernel takes bf16 or fp32")
+    if not admits(k, n):
+        raise ValueError(f"quantized_matmul_dx: K={k}, N={n} must be "
+                         f"multiples of 128")
+    dev = gs.device
+    for t in (gs, w):
+        if t.device != dev or dev.type != "cuda" or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError("quantized_matmul_dx: gs and w must be "
+                             "contiguous, 16-byte aligned tensors on one "
+                             "CUDA device")
+    dx = torch.empty((m, k), dtype=gs.dtype, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pfx_quantized_matmul_dx(
+            gs.data_ptr(), w.data_ptr(), dx.data_ptr(), m, n, k,
+            int(gs.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"quantized_matmul_dx: kernel launch failed with "
+                           f"cudaError {rc}")
+    quantized_matmul.dx_launches += 1
+    return dx
+
+
 class _QuantizedMatmul(torch.autograd.Function):
-    """The kernel (or, on the CPU, its plain version) with no ported
-    gradient."""
+    """The kernel (or, on the CPU, its plain version) and the JAX VJP:
+    dx through kernel 7's dx route, no gradient for the int8 weight or
+    the scales."""
 
     @staticmethod
     def forward(ctx, x, w, scale):
+        ctx.save_for_backward(w, scale)
         if all(t.device.type == "cpu" for t in (x, w, scale)):
             return quantized_matmul_reference(x, w, scale)
         return _launch(x, w, scale)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the gradient of the weight-only int8 matmul (the dx route of "
-            "the JAX package's _quantized_matmul_bwd) is not ported")
+        w, scale = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            # the scale folded into the cotangent (exact: it is per N,
+            # the contraction axis here), rounded to g's dtype first
+            gs = (grad.float() * scale).to(grad.dtype).contiguous()
+            dx = quantized_matmul_dx(gs, w)
+        return dx, None, None
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -128,3 +189,4 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 quantized_matmul.launches = 0
+quantized_matmul.dx_launches = 0

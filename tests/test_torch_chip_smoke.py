@@ -93,17 +93,26 @@ def shims(monkeypatch):
                  "flash_decode_paged_verify"):
         monkeypatch.setattr(fa, name, _counting(getattr(fa, name)))
     qmm_plain = qmm.quantized_matmul_reference
+    dx_plain = qmm.quantized_matmul_dx_reference
 
     def qmm_shim(*args, **kwargs):
         qmm.quantized_matmul.launches += 1
         return qmm_plain(*args, **kwargs)
+
+    def dx_shim(*args, **kwargs):
+        qmm.quantized_matmul.dx_launches += 1
+        return dx_plain(*args, **kwargs)
     monkeypatch.setattr(qmm, "quantized_matmul_reference", qmm_shim)
+    monkeypatch.setattr(qmm, "quantized_matmul_dx_reference", dx_shim)
     for name, wrapper in (("grouped_matmul_reference", gmm.grouped_matmul),
                           ("grouped_matmul_dw_reference",
                            gmm.grouped_matmul_dw)):
         monkeypatch.setattr(gmm, name, _launching(getattr(gmm, name),
                                                   wrapper))
     yield
+    # the shims counted runs as launches; a later test in this process
+    # reads the real wrappers' counts from zero
+    chip_smoke.reset_counts()
     metrics.get_registry().reset()
     metrics.set_enabled(False)
 
@@ -714,3 +723,123 @@ def test_int8_bounds():
                                     2 * (64 + 4))
     nbytes = 2 * (64 + 4) * 2 * 7 + 2 * 2 * 2 * 2 * 64 * 2 + 4 * 2
     assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+#: the four dense sites at a tiny width (K, N multiples of 128)
+QMM_TINY = (("qkv", 128, 384), ("out", 128, 128), ("fc1", 128, 256),
+            ("fc2", 256, 128))
+
+
+def test_lora_kernel_phases_run_at_tiny_size(shims, capsys):
+    """Kernel 7's dx route at the four sites and kernels 8 / 9 at the
+    bank shapes (rank 8, one group empty, dw at the larger C) against
+    their plain versions, with the grouped delta against the
+    gather-einsum form; the kernels line's dx row and the LoRA entries
+    of kernels 8 and 9."""
+    dx = chip_smoke.phase_kernel_qmm_dx("cpu", rows=(16, 40),
+                                        sites=QMM_TINY)
+    assert len(dx) == 16 and dx[0]["M"] == 40
+    assert all(c["rel_l2"] <= chip_smoke.TOL_REL_L2[c["dtype"]] <
+               c["rel_l2_planted"] for c in dx)
+    calls = chip_smoke.lora_calls(QMM_TINY)
+    assert calls[:2] == [("qkv_down", 128, 8), ("qkv_up", 8, 384)]
+    cases, deltas = chip_smoke.phase_kernel_gmm_lora("cpu", cs=(16, 40),
+                                                     calls=calls)
+    assert [c["kernel"] for c in cases].count("grouped_matmul_dw") == 8
+    assert all(c["empty_exact_zero"] and c["live_groups"] == 4 and
+               c["G"] == 5 for c in cases)
+    assert len(deltas) == 8
+    grad = {"full": {"launches": {"quantized_matmul_dx": 96,
+                                  "grouped_matmul": 384,
+                                  "grouped_matmul_dw": 192}}}
+    serve_lora = {"arms": {
+        "id0": {"launches": {"grouped_matmul": 10}},
+        "mixed": {"launches": {"grouped_matmul": 12}}}}
+    train_moe = {"launches": {"grouped_matmul": 768,
+                              "grouped_matmul_dw": 384}}
+    rows = {r["name"]: r for r in chip_smoke.gmm_rows(
+        [], train_moe, (cases, deltas, serve_lora, grad))}
+    assert rows["grouped_matmul"]["launches_by_path"] == {
+        "train_moe": 768, "serve_lora_id0": 10, "serve_lora_mixed": 12,
+        "grad_int8_lora": 384}
+    assert rows["grouped_matmul_dw"]["launches"] == 384 + 192
+    assert "qkv_C16" in rows["grouped_matmul"]["lora_delta"]
+    (row,) = chip_smoke.lora_rows(dx, grad)
+    assert KERNEL_KEYS <= set(row) and row["launches"] == 96
+    assert row["replaces"].endswith("quantized_matmul.py:129")
+    phases = [d.get("phase") for d in _lines(capsys)]
+    for phase in ("kernel_qmm_dx", "kernel_gmm_lora",
+                  "kernel_gmm_lora_delta"):
+        assert phase in phases
+
+
+def test_lora_serving_phases_run_at_tiny_size(shims, capsys, monkeypatch):
+    """The LoRA serving phases at a tiny size: the trace on adapter 0
+    (token-exact with the rank-0 twin) and on mixed adapters, every bank
+    through the grouped delta (kernel 8 twice a site), no gather-einsum;
+    the int8 arms with LoRA (kernels 5, 6a, 6b, 7, 8); the 2-layer
+    parity against a CPU copy and the eviction run."""
+    monkeypatch.setattr(chip_smoke, "HEADLINE", TINY_HEADLINE)
+    record, module = chip_smoke.phase_serve_lora("cpu", TINY)
+    assert module.model_config.lora_rank == 8
+    assert record["mixed_requests_differing"] > 0
+    for arm in ("id0", "mixed"):
+        assert record[f"lora_grouped_{arm}"] == \
+            4 * 2 * record[f"forwards_{arm}"] > 0
+        assert record[f"kernel8_launches_{arm}"] == \
+            2 * record[f"lora_grouped_{arm}"]
+        assert record[f"lora_fallback_{arm}"] == 0
+    assert record["adapters_resident_id0"] == 0
+    assert record["adapter_misses_mixed"] == 4
+    runs = chip_smoke.phase_serve_lora_int8(
+        "cpu", TINY, short={"requests": 3, "max_dec_len": 4})
+    for arm, kernel in (("contiguous_spec", "flash_decode_verify"),
+                        ("paged", "flash_decode_paged"),
+                        ("paged_spec", "flash_decode_paged_verify")):
+        run = runs[arm]
+        assert run["kernel"] == kernel and run["launches"][kernel] > 0
+        assert run["launches"]["quantized_matmul"] > 0
+        assert run["launches"]["grouped_matmul"] == \
+            2 * run["counters"]["lora/grouped"] > 0
+    with one_thread():
+        fp32, bf16 = chip_smoke.phase_parity_lora(
+            "cpu", TINY, requests=4, max_dec_len=6, hi=60)
+    assert fp32["rows_equal"] == 4 and fp32["evictions"] > 0
+    assert fp32["eviction_tokens_equal"] and bf16["dtype"] == "bfloat16"
+    phases = [d.get("phase") for d in _lines(capsys)]
+    for phase in ("serve_lora_id0", "serve_lora_mixed", "serve_lora_rank0",
+                  "serve_lora", "serve_lora_int8", "parity_lora"):
+        assert phase in phases
+
+
+def test_lora_training_phases_run_at_tiny_size(shims, capsys):
+    """The gradient over an int8 base with mixed ids against the CPU
+    copy (fp32 and bf16) with kernels 7 (and its dx route), 8 and 9 at
+    their counts a layer, and a full-size pass; then the frozen-base
+    fine-tune through the entry point."""
+    grad = chip_smoke.phase_grad_int8_lora("cpu", TINY, batch=2, seq=32,
+                                           full=(2, 64))
+    assert grad["float32"]["launches"] == {
+        k: 2 * v for k, v in chip_smoke.GRAD_LORA_PER_LAYER.items()}
+    assert grad["full"]["launches"]["quantized_matmul_dx"] == 4 * 2
+    assert grad["float32"]["worst_leaf_rel_diff"] <= 1e-4
+    record = chip_smoke.phase_finetune_lora("cpu", TRAIN_TINY)
+    assert record["base_bit_equal"] and record["lora_b_max_abs"] == 0.0
+    assert record["lora_a_norm_ratio_max"] < 1.0
+    assert record["trained_params"] == record["state_entries"] == 16
+    phases = [d.get("phase") for d in _lines(capsys)]
+    assert "grad_int8_lora" in phases and "finetune_lora" in phases
+
+
+def test_lora_count_check_catches_a_fallback():
+    """Kernel 8 launched other than twice a bank call, a missing site,
+    or any gather-einsum fail the LoRA check."""
+    ok = {"grouped_matmul": 2 * 4 * 2 * 3,
+          "counters": {"lora/grouped": 4 * 2 * 3}}
+    chip_smoke.check_lora_counts(ok, 2, 3, "t")
+    for bad in (dict(ok, grouped_matmul=5),
+                dict(ok, counters={"lora/grouped": 4 * 2 * 3,
+                                   "lora/fallback": 1}),
+                dict(ok, counters={"lora/grouped": 4 * 2 * 3 - 1})):
+        with pytest.raises(AssertionError, match="lora/grouped"):
+            chip_smoke.check_lora_counts(bad, 2, 3, "t")

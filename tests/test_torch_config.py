@@ -57,14 +57,14 @@ def test_fp32_override_gives_fp32_compute():
     assert cfg.dtype == "float32"
 
 
-#: the int8 knobs (ported) beside a knob that is not: only the latter
-#: is named
+#: the int8 and LoRA knobs (ported) beside a knob that is not: only the
+#: latter is named
 @pytest.mark.parametrize("knob", [
     {"kv_page_size": 128, "kv_pool_pages": 9, "kv_cache_dtype": "int8",
-     "lora_num_adapters": 2},
+     "fuse_attn_qkv": False},
     {"kv_cache_dtype": "int8", "context_parallel": True},
     {"quant_execution": "weight_only_int8", "fuse_attn_qkv": False},
-    {"lora_rank": 4, "lora_num_adapters": 2},
+    {"lora_rank": 4, "lora_num_adapters": 2, "context_parallel": True},
     {"context_parallel": True, "context_parallel_algo": "ulysses"},
     {"context_parallel": True},
     {"fuse_attn_qkv": False},
@@ -76,6 +76,7 @@ def test_unported_knobs_raise(knob):
                   **knob)
     assert "kv_cache_dtype" not in str(err.value)
     assert "quant_execution" not in str(err.value)
+    assert "lora" not in str(err.value).lower()
 
 
 @pytest.mark.parametrize("knob", [

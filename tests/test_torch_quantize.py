@@ -138,7 +138,7 @@ def test_build_model_keeps_scales_fp32_under_bf16():
 
 def test_training_under_quant_execution_raises():
     cfg = GPTConfig(**tiny_kwargs(quant_execution="weight_only_int8"))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="int8 leaves"):
         build_model(cfg, CPU, train=True)
 
 

@@ -1,12 +1,15 @@
 """Kernel 7 (the weight-only int8 matmul) and ``quant_execution`` against
 the JAX package: the plain version against the JAX Pallas kernel in
-interpret mode, the wrapper's CPU route, its refused gradient and its
-admission, and a quantized model's logits against the JAX quantized
+interpret mode, the wrapper's CPU route, its gradient (the dx route's
+plain version against ``jax.vjp`` through the JAX kernel, nothing for
+the weight and scales) and its admission, and a quantized model's
+logits against the JAX quantized
 model on the same quantized weights, every dense site through the
 kernel on both sides (the port of ``tests/test_quantized_matmul.py``'s
 end-to-end and fallback cases). The launch itself needs the card: its
 test is marked ``cuda`` and skips here."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,7 +89,8 @@ def test_wrapper_route_admission_and_gradient():
     """On CPU tensors the wrapper is the plain version; it refuses
     operands that are not ``[M, K]``, int8 ``[N, K]``, ``[N]``; the
     kernel admits K and N multiples of 128 and any M; a backward
-    through it raises rather than return no gradient."""
+    through it gives x the dx route's plain version of the scaled,
+    rounded gradient, on the CPU, and counts no launch."""
     x, w, s = _port(*_inputs(5, 256, 128, 9))
     np.testing.assert_array_equal(
         qmm.quantized_matmul(x, w, s).numpy(),
@@ -99,8 +103,47 @@ def test_wrapper_route_admission_and_gradient():
     assert not qmm.admits(32, 128) and not qmm.admits(128, 96)
     x.requires_grad_(True)
     out = qmm.quantized_matmul(x, w, s)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        out.sum().backward()
+    g = torch.from_numpy(rng(10).standard_normal(out.shape).astype(
+        np.float32))
+    out.backward(g)
+    np.testing.assert_array_equal(
+        x.grad.numpy(),
+        qmm.quantized_matmul_dx_reference(g * s, w).numpy())
+    assert qmm.quantized_matmul.dx_launches == 0
+    with pytest.raises(ValueError):
+        qmm.quantized_matmul_dx(g, w.float())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_dx_route_matches_jax_vjp(m, k, n, dtype):
+    """The port's dx through the autograd of :func:`quantized_matmul`
+    (the dx route's plain version on the CPU) equals ``jax.vjp``
+    through the JAX kernel in interpret mode (``_quantized_matmul_bwd``:
+    the cotangent scaled and rounded to its dtype, then the kernel over
+    the transposed weight): fp32 within the kernel test's tolerances,
+    bf16 within one bf16 ulp. The int8 weight and the scales get no
+    gradient (JAX: a float0 and zeros)."""
+    x, w, s = _inputs(m, k, n, 200 + m)
+    g = rng(300 + m).standard_normal((m, n)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    out, vjp = jax.vjp(lambda a, sc: jax_qmm(a, jnp.asarray(w), sc),
+                       jnp.asarray(x, jdt), jnp.asarray(s))
+    ref, ref_ds = vjp(jnp.asarray(g, jdt))
+    np.testing.assert_array_equal(np.asarray(ref_ds), 0.0)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    px, pw, ps = _port(x, w, s, tdt)
+    px.requires_grad_(True)
+    ps.requires_grad_(True)
+    qmm.quantized_matmul(px, pw, ps).backward(torch.from_numpy(g).to(tdt))
+    assert px.grad.dtype == tdt and ps.grad is None
+    if dtype == "float32":
+        np.testing.assert_allclose(px.grad.numpy(), np.asarray(ref),
+                                   rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_allclose(px.grad.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   rtol=BF16_RTOL, atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -119,6 +162,33 @@ def test_kernel_launch_matches_plain_on_the_card():
         torch.cuda.synchronize()
         assert qmm.quantized_matmul.launches == before + 1
         ref = qmm.quantized_matmul_reference(x.float(), w, s)
+        assert float((got.float() - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_dx_kernel_matches_plain_on_the_card():
+    """Kernel 7's dx route launched on the card at the fc1 and fc2
+    sites (tiles of opposite aspect), a ragged M, bf16 and fp32, against
+    its plain version; each call counts one dx launch and no forward
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to launch kernel 7's dx route")
+    for m, k, n, dtype, tol in ((16, 1024, 4096, torch.bfloat16, 2e-2),
+                                (37, 4096, 1024, torch.bfloat16, 2e-2),
+                                (37, 1024, 3072, torch.float32, 1e-4)):
+        _, w, s = _port(*_inputs(m, k, n, m))
+        g = torch.randn((m, n), device="cuda") * 0.01
+        gs = (g * s.cuda()).to(dtype)
+        w = w.cuda()
+        before = (qmm.quantized_matmul.launches,
+                  qmm.quantized_matmul.dx_launches)
+        got = qmm.quantized_matmul_dx(gs, w)
+        torch.cuda.synchronize()
+        assert (qmm.quantized_matmul.launches,
+                qmm.quantized_matmul.dx_launches) == (before[0],
+                                                      before[1] + 1)
+        ref = qmm.quantized_matmul_dx_reference(gs.float(), w)
+        assert got.shape == (m, k) and got.dtype == dtype
         assert float((got.float() - ref).abs().max()) <= tol
 
 
