@@ -463,19 +463,51 @@ def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
     return rec
 
 
+def sass_tensor_ops(lib_path, names=("gmm_wgmma_", "gmm_dw_wgmma_")):
+    """Per kernel whose name holds one of ``names``: its ``HGMMA``
+    (wgmma) and ``HMMA`` (mma.sync) instructions in the built library's
+    SASS, as ``cuobjdump --dump-sass`` shows it; None where the toolkit
+    has no cuobjdump."""
+    from paddlefleetx_tpu_torch.ops.cuda import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if any(n in fn for n in names) else None
+            if fn:
+                found[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    found[fn][op] += 1
+    return found
+
+
 def phase_build():
-    """Build both kernels from csrc/ (timed) and save the compiler's
-    report."""
+    """Build the kernels from csrc/ (timed), save the compiler's report,
+    and count the route (a) kernels' tensor-core instructions in the
+    SASS."""
     from paddlefleetx_tpu_torch.ops.cuda import build
     t0 = time.time()
     build.load()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as f:
         f.write(str(build.last_build.get("log", "")))
+    sass = sass_tensor_ops(str(build.last_build.get("path")))
+    if sass is not None and (not sass or not all(
+            v["HGMMA"] > 0 for v in sass.values())):
+        raise AssertionError(f"build: the wgmma kernels' SASS holds no "
+                             f"HGMMA: {sass}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "nvcc_seconds": build.last_build.get("seconds"),
           "library": os.path.relpath(str(build.last_build.get("path")),
-                                     ROOT)})
+                                     ROOT),
+          "wgmma_sass": sass})
 
 
 def phase_kernels():
@@ -1004,6 +1036,30 @@ def _grouped_mm_ms(torch, a, b):
     return None, last
 
 
+def _route_counts(gmm, kind) -> dict:
+    """The launch counts by route of kernel 8 (``kind`` fwd or dx) or 9
+    (dw); empty for a stand-in module without them."""
+    wrapper = getattr(gmm, "grouped_matmul_dw" if kind == "dw"
+                      else "grouped_matmul", None)
+    return dict(getattr(wrapper, "launches_by_route", None) or {})
+
+
+def _route_taken(gmm, kind, before):
+    """The one route whose launch count moved since ``before``, or None
+    where none did (a stand-in that counts nothing)."""
+    now = _route_counts(gmm, kind)
+    moved = [r for r in now if now[r] != before.get(r, 0)]
+    if len(moved) > 1:
+        raise AssertionError(f"one call moved the counts of {moved}")
+    return moved[0] if moved else None
+
+
+def _gmm_routes(counts) -> dict:
+    """Kernels 8 and 9's launches by route out of :func:`read_counts`."""
+    return {name: counts[f"{name}_routes"]
+            for name in ("grouped_matmul", "grouped_matmul_dw")}
+
+
 def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
              groups=GMM_GROUPS, empty=GMM_EMPTY):
     """One expert GEMM of the recipe through kernel 8 (forward, or dx
@@ -1011,11 +1067,14 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
     version (fp32 math on the same inputs), by max abs error and per 64
     x 64 output tile normwise (planted fault refused), with the planted
     empty groups (and expert 3's dw) exactly zero, and in the fc2 calls
-    the padding rows non-zero (dy is non-zero on every row); timed with
-    its plain
-    version, ``torch.bmm`` over ``x.view(Gw, rep C, K)`` (the same
-    function when no group is empty) and ``torch._grouped_mm`` where
-    this PyTorch has it. On the CPU the wrappers run their plain
+    the padding rows non-zero (dy is non-zero on every row); launched
+    twice, the two outputs bit-identical; the route it took read from
+    the counts by route; timed with its plain version, the mma kernels
+    that held every shape before the wgmma and split routes (fp32: its
+    one kernel) through the wrapper's
+    private route argument, ``torch.bmm`` over ``x.view(Gw, rep C, K)``
+    (the same function when no group is empty) and ``torch._grouped_mm``
+    where this PyTorch has it. On the CPU the wrappers run their plain
     versions and nothing is timed."""
     g, gw, c = groups["G"], groups["Gw"], groups["C"]
     rep = g // gw
@@ -1035,13 +1094,19 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
     # outputs of std ~0.5
     pad = randn(1, 1, k).float() if call.startswith("fc2") else 0.0
     x = torch.where(rows, randn(g, c, k).float(), pad).to(dtype)
+    before = _route_counts(gmm, kind)
+    prev_route = "f32" if dtype == torch.float32 else "mma"
     if kind == "dw":
         dy = randn(g, c, n, scale=0.5 / (rep * c) ** 0.5)
         out = gmm.grouped_matmul_dw(x, dy, counts, gw)
+        route = _route_taken(gmm, kind, before)
         ref = gmm.grouped_matmul_dw_reference(x, dy, counts, gw)
 
         def run():
             return gmm.grouped_matmul_dw(x, dy, counts, gw)
+
+        def prev():
+            return gmm._launch_dw(x, dy, counts, gw, route=prev_route)
 
         def plain():
             return gmm.grouped_matmul_dw_reference(x, dy, counts, gw)
@@ -1059,6 +1124,7 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
             out = gmm.grouped_matmul_dx(x, w.transpose(1, 2), counts)
         else:
             out = gmm.grouped_matmul(x, w, counts)
+        route = _route_taken(gmm, kind, before)
         ref = gmm.grouped_matmul_reference(x.float(), w.float(), counts)
 
         def run():
@@ -1066,16 +1132,25 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
                 return gmm.grouped_matmul_dx(x, w.transpose(1, 2), counts)
             return gmm.grouped_matmul(x, w, counts)
 
+        def prev():
+            return gmm._launch(x, w, counts, route=prev_route)
+
         def plain():
             return gmm.grouped_matmul_reference(x, w, counts)
         a, b = x.view(gw, rep * c, k), w
         zero = out[list(empty)]
+    again = run()
     if device != "cpu":
         torch.cuda.synchronize()
     name = _dtype_name(dtype)
     tol = TOL_GMM[name]
     err = _max_err(out, ref)
     what = f"grouped_matmul{'_dw' if kind == 'dw' else ''} ({name}, {call})"
+    if device != "cpu" and route is None:
+        raise AssertionError(f"{what}: no route's launch count moved")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{what}: two launches on the same inputs "
+                             f"differ")
     if not torch.isfinite(out.float()).all() or err > tol:
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"max abs err {err:.3e} > {tol:.0e}")
@@ -1083,10 +1158,11 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
         raise AssertionError(f"{what}: a planted empty group is not zeros")
     rel_l2, planted = _hold_tiles(out.reshape(-1, out.shape[-1]),
                                   ref.reshape(-1, ref.shape[-1]), what)
-    ms = call_ms = plain_ms = bmm_ms = gmm_ms = None
+    ms = call_ms = plain_ms = bmm_ms = gmm_ms = prev_ms = None
     gmm_how = "not timed on the CPU"
     if device != "cpu":
         ms, call_ms = time_ms(lambda i: run(), 1)
+        prev_ms, _ = time_ms(lambda i: prev(), 1)
         plain_ms, _ = time_ms(lambda i: plain(), 1, iters=3, warmup=1)
         bmm_ms, _ = time_ms(lambda i: torch.bmm(a, b), 1)
         gmm_ms, gmm_how = _grouped_mm_ms(torch, a, b)
@@ -1098,7 +1174,11 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
             "live_groups": int((counts > 0).sum()),
             "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
             "rel_l2_planted": planted, "empty_exact_zero": True,
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bit_equal_rerun": True, "route": route,
+            "ms": ms, "call_ms": call_ms, "ms_prev_design": prev_ms,
+            "prev_design": f"the {prev_route} route, alone before the "
+            f"wgmma and split routes",
+            "plain_ms": plain_ms,
             "library_ms": bmm_ms, "library_computes":
             "torch.bmm over x.view(Gw, rep C, K) (dw: x^T and dy so "
             "viewed; output in x's dtype)", "grouped_mm_ms": gmm_ms,
@@ -1411,8 +1491,9 @@ def reset_counts():
     fa.flash_attention_backward.launches_dq = 0
     qmm.quantized_matmul.launches = 0
     qmm.quantized_matmul.dx_launches = 0
-    gmm.grouped_matmul.launches = 0
-    gmm.grouped_matmul_dw.launches = 0
+    for wrapper in (gmm.grouped_matmul, gmm.grouped_matmul_dw):
+        wrapper.launches = 0
+        wrapper.launches_by_route = dict.fromkeys(gmm.ROUTES, 0)
     metrics.set_enabled(True)
     metrics.get_registry().reset()
 
@@ -1433,6 +1514,10 @@ def read_counts() -> dict:
               "quantized_matmul_dx": qmm.quantized_matmul.dx_launches,
               "grouped_matmul": gmm.grouped_matmul.launches,
               "grouped_matmul_dw": gmm.grouped_matmul_dw.launches,
+              "grouped_matmul_routes":
+              dict(gmm.grouped_matmul.launches_by_route),
+              "grouped_matmul_dw_routes":
+              dict(gmm.grouped_matmul_dw.launches_by_route),
               "counters": {k: v for k, v in sorted(counters.items())
                            if k.startswith(("attention/", "quant/", "moe/",
                                             "lora/", "serving/"))}}
@@ -1537,7 +1622,8 @@ KERNEL_CATEGORIES = (("flash_decode", ("decode_kernel",)),
                      ("flash_bwd_dq", ("flash_bwd_dq",)),
                      ("quantized_matmul", ("qmm_",)),
                      ("grouped_matmul_dw", ("gmm_dw_",)),
-                     ("grouped_matmul", ("gmm_mma_", "gmm_f32_")),
+                     ("grouped_matmul", ("gmm_mma_", "gmm_f32_", "gmm_wgmma_",
+                                         "gmm_split_")),
                      ("gemm", ("gemm", "nvjet", "splitkreduce", "cutlass",
                                "xmma")))
 
@@ -2008,7 +2094,7 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
                           cfg)
     if adapters is not None:
         check_lora_counts(counts, cfg.num_layers, server_forwards(summary),
-                          label)
+                          label, cfg.dtype)
     generated = sum(len(c.tokens) for c in completions)
     record = {
         "phase": label, "model": "GPT-345M", "dtype": cfg.dtype,
@@ -2034,6 +2120,7 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
                                        counts["quantized_matmul"],
                                        "grouped_matmul":
                                        counts["grouped_matmul"]},
+        "launches_by_route": _gmm_routes(counts),
         "forwards": server_forwards(summary),
         "counters": counts["counters"]}
     for key in ("prefill_chunks", "prefix_hits", "prompt_hits", "cow_splits",
@@ -2795,11 +2882,16 @@ def moe_flops_per_token(mcfg, seq) -> float:
                         6.0 * h * mcfg.moe_num_experts)
 
 
-def check_moe_counts(counts, steps, acc, layers, label):
+#: the route every expert GEMM of the MoE recipe takes on the card
+MOE_ROUTE = "wgmma"
+
+
+def check_moe_counts(counts, steps, acc, layers, label, route=None):
     """Kernels 8 and 9 launched ``GMM_PER_LAYER`` times a layer and
     microbatch (kernel 8 more often: ``save_dots`` recomputed the expert
-    GEMMs), kernels 1, 3, 4 once, every MoE block on ``sort_pallas``,
-    no fallback of either dispatch and no dense attention."""
+    GEMMs), all of them on ``route`` where one is given, kernels 1, 3, 4
+    once, every MoE block on ``sort_pallas``, no fallback of either
+    dispatch and no dense attention."""
     runs = steps * acc * layers
     want = {k: v * runs for k, v in GMM_PER_LAYER.items()}
     want.update({k: runs for k in ("flash_attention", "flash_bwd_dkv",
@@ -2807,6 +2899,12 @@ def check_moe_counts(counts, steps, acc, layers, label):
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
+    for name in GMM_PER_LAYER if route else ():
+        by_route = counts[f"{name}_routes"]
+        if by_route.get(route, 0) != counts[name]:
+            raise AssertionError(f"{label}: {name} launches by route "
+                                 f"{by_route}, expected all {counts[name]} "
+                                 f"on {route}")
     c = counts["counters"]
     fallbacks = sorted(k for k in c if k.startswith(
         ("moe/fallback/", "attention/fallback/")))
@@ -2860,7 +2958,8 @@ def phase_train_moe(device="cuda", overrides=(), steps=16):
         raise AssertionError(f"train_moe: the loss did not fall "
                              f"({first5:.4f} -> {last5:.4f})")
     acc, layers = engine.accumulate_steps, mcfg.num_layers
-    check_moe_counts(counts, steps, acc, layers, "train_moe")
+    check_moe_counts(counts, steps, acc, layers, "train_moe",
+                     route=MOE_ROUTE if device != "cpu" else None)
     seq = cfg.Data.Train.dataset.max_seq_len
     micro = cfg.Global.micro_batch_size
     # the trained model's router loss and cross-entropy on a seeded
@@ -2909,6 +3008,7 @@ def phase_train_moe(device="cuda", overrides=(), steps=16):
         "launches": {k: counts[k] for k in (
             "grouped_matmul", "grouped_matmul_dw", "flash_attention",
             "flash_bwd_dkv", "flash_bwd_dq")},
+        "launches_by_route": _gmm_routes(counts),
         "counters": counts["counters"]}
     if device != "cpu":
         record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3138,6 +3238,11 @@ LORA_C = (16, 4096)
 LORA_EMPTY = (2,)
 #: the banks' rank (``LORA_KNOBS``)
 LORA_RANK = 8
+#: ``(call, K, N, C)`` where the split route's clusters do not divide
+#: the reduction evenly: ``x @ A`` at K 4104 (C 16) and the ``lora_a``
+#: dw at C 4000
+LORA_EDGE = (("edge_down", 4104, LORA_RANK, 16),
+             ("edge_down_dw", 1024, LORA_RANK, 4000))
 #: requests of ``serve_lora``'s warm run
 LORA_WARM = 4
 
@@ -3168,11 +3273,14 @@ def lora_source(model, seed, std=0.02):
     return source
 
 
-def phase_kernel_gmm_lora(device="cuda", cs=LORA_C, calls=None, bank=5):
+def phase_kernel_gmm_lora(device="cuda", cs=LORA_C, calls=None, bank=5,
+                          edges=LORA_EDGE):
     """Kernel 8 at the LoRA bank shapes (``bank`` groups, rank 8, every
     site's ``x @ A`` and ``(xA) @ B``, C 16 and 4096, group 2 empty) in
-    bf16 (fp32 at C 16 for the qkv pair) and kernel 9 at the banks' dw
-    (C 4096), against their plain versions (:func:`gmm_case`), timed
+    bf16 (fp32 at C 16 for the qkv pair), kernel 9 at the banks' dw
+    (C 4096) and both at ``edges`` (a reduction the split route's
+    clusters do not divide evenly), against their plain versions
+    (:func:`gmm_case`), timed
     beside ``torch.bmm`` on the same buffer; then each site's whole
     grouped delta (``ops/lora.py``: sort, scatter, two kernel-8 calls,
     gather) beside the gather-einsum form on the same rows and banks.
@@ -3199,6 +3307,12 @@ def phase_kernel_gmm_lora(device="cuda", cs=LORA_C, calls=None, bank=5):
             seed += 1
             if device != "cpu":
                 torch.cuda.empty_cache()
+    for call, k, n, c in edges:
+        cases.append(gmm_case(gmm, torch, torch.bfloat16, call, k, n, seed,
+                              device, {"G": bank, "Gw": bank, "C": c},
+                              LORA_EMPTY))
+        cases[-1]["lora"] = True
+        seed += 1
     for case in cases:
         emit({"phase": "kernel_gmm_lora", **case})
     deltas = []
@@ -3234,20 +3348,27 @@ def phase_kernel_gmm_lora(device="cuda", cs=LORA_C, calls=None, bank=5):
     return cases, deltas
 
 
-def check_lora_counts(counts, layers, forwards, label):
+def check_lora_counts(counts, layers, forwards, label, dtype="bfloat16"):
     """With adapter ids every forward ran the grouped delta at the four
-    sites of every layer (``lora/grouped``), each two kernel-8 launches,
-    and the gather-einsum form never ran."""
+    sites of every layer (``lora/grouped``), each two kernel-8 launches
+    (in bf16 ``x @ A`` on the split route and ``(xA) @ B``, a reduction
+    of r = 8, on the mma route; in fp32 both on the fp32 kernel), and
+    the gather-einsum form never ran."""
     c = counts["counters"]
     want = 4 * layers * forwards
+    by_route = counts["grouped_matmul_routes"]
+    routes = {"split": want, "mma": want} if dtype == "bfloat16" else \
+        {"f32": 2 * want}
     if not c.get("lora/grouped", 0) == want > 0 or \
             counts["grouped_matmul"] != 2 * want or \
-            c.get("lora/fallback", 0):
+            c.get("lora/fallback", 0) or \
+            {r: n for r, n in by_route.items() if n} != routes:
         raise AssertionError(
             f"{label}: lora/grouped {c.get('lora/grouped')}, kernel 8 "
-            f"launched {counts['grouped_matmul']}, lora/fallback "
-            f"{c.get('lora/fallback', 0)}; expected {want} (4 sites x "
-            f"{layers} layers x {forwards} forwards) and {2 * want}")
+            f"launched {counts['grouped_matmul']} (by route {by_route}), "
+            f"lora/fallback {c.get('lora/fallback', 0)}; expected {want} "
+            f"(4 sites x {layers} layers x {forwards} forwards) and "
+            f"{2 * want}, by route {routes}")
 
 
 def phase_serve_lora(device="cuda", overrides=(), requests=None):
@@ -3316,6 +3437,8 @@ def phase_serve_lora(device="cuda", overrides=(), requests=None):
                 arm["launches"]["grouped_matmul"]
             record[f"kernel8_per_tick_{name}"] = \
                 arm["launches"]["grouped_matmul"] / arm["forwards"]
+            record[f"kernel8_by_route_{name}"] = \
+                arm["launches_by_route"]["grouped_matmul"]
             for key in ("adapter_rows", "adapters_resident", "adapter_hits",
                         "adapter_misses", "adapter_evictions"):
                 record[f"{key}_{name}"] = arm.get(key)
@@ -3419,7 +3542,8 @@ def phase_parity_lora(device="cuda", overrides=(), requests=6,
         got = [c.tokens for c in srv.run(prompts, ids)]
         counts = read_counts()
         check_lora_counts(counts, cfg.num_layers,
-                          server_forwards(srv.summary()), "parity_lora")
+                          server_forwards(srv.summary()), "parity_lora",
+                          cfg.dtype)
         cpu = build_model(cfg, torch.device("cpu"), state_dict={
             k: v.cpu() for k, v in model.state_dict().items()})
         want = [c.tokens for c in GenerationServer(
@@ -3612,6 +3736,7 @@ def phase_grad_int8_lora(device="cuda", overrides=(), batch=2, seq=256,
     record["full"] = {"dtype": cfg.dtype, "layers": cfg.num_layers,
                       "batch": b, "seq": s, "loss": loss,
                       "fwd_bwd_s": wall, "launches": got,
+                      "launches_by_route": _gmm_routes(counts),
                       "counters": counts["counters"]}
     if device != "cpu":
         record["full"]["peak_mem_gib"] = \
@@ -3729,6 +3854,9 @@ def gmm_rows(cases, train_moe, lora=None) -> list:
     lora_cases, deltas, serve_lora, grad = lora or ([], [], None, None)
     cases = cases + lora_cases
     rows = []
+
+    def routes(rec, name):
+        return rec.get("launches_by_route", {}).get(name, {})
     for name, replaces in (
             ("grouped_matmul",
              "paddlefleetx_tpu/ops/pallas/grouped_matmul.py:52"),
@@ -3738,16 +3866,24 @@ def gmm_rows(cases, train_moe, lora=None) -> list:
         head = mine[0]
         err = max(c["max_abs_err"] for c in mine)
         by_path = {"train_moe": train_moe["launches"][name]}
+        route_recs = [train_moe]
         if serve_lora is not None:
             for arm, rec in serve_lora["arms"].items():
                 by_path[f"serve_lora_{arm}"] = rec["launches"].get(name, 0)
+                route_recs.append(rec)
         if grad is not None:
             by_path["grad_int8_lora"] = grad["full"]["launches"][name]
+            route_recs.append(grad["full"])
+        by_route = {}
+        for rec in route_recs:
+            for r, n in routes(rec, name).items():
+                by_route[r] = by_route.get(r, 0) + n
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddlefleetx_tpu_torch/csrc/grouped_matmul.cu",
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            "kernel_route": head["route"], "launches_by_route": by_route,
             "max_abs_err": err, "max_err": err,
             "tol": {c["dtype"]: c["tol"] for c in mine},
             "max_rel_l2": max(c["rel_l2"] for c in mine),
@@ -3756,6 +3892,7 @@ def gmm_rows(cases, train_moe, lora=None) -> list:
             "empty_exact_zero": all(c["empty_exact_zero"] for c in mine),
             "ms": head["ms"], "kernel_ms": head["ms"],
             "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+            "ms_prev_design": head["ms_prev_design"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "library_computes": head["library_computes"],
@@ -3765,8 +3902,9 @@ def gmm_rows(cases, train_moe, lora=None) -> list:
                                            "K", "N", "live_groups")},
             "by_shape": {f"{c['dtype']}_{c['call']}"
                          f"{'_C%d' % c['C'] if c.get('lora') else ''}": {
-                k: c[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
-                                  "grouped_mm_ms", "bound_ms", "bound_by")}
+                k: c[k] for k in ("route", "ms", "ms_prev_design", "call_ms",
+                                  "plain_ms", "library_ms", "grouped_mm_ms",
+                                  "bound_ms", "bound_by")}
                 for c in mine},
             "cases": len(mine)})
     if deltas:

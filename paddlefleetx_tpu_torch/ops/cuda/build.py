@@ -57,9 +57,12 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _I, _F, _I, _P],
     "pfx_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pfx_quantized_matmul_dx": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # ... is_bf16, then the route, its tile (rows, columns) and the
+    # split route's cluster size
     "pfx_grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL,
-                           _LL, _I, _P],
-    "pfx_grouped_matmul_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                           _LL, _I, _I, _I, _I, _I, _P],
+    "pfx_grouped_matmul_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P],
     "pfx_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
     "pfx_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -49,11 +49,15 @@ def _counting(fn):
     return shim
 
 
-def _launching(plain, wrapper):
-    """``plain`` counting each run as a launch of ``wrapper``'s kernel."""
+def _launching(plain, wrapper, planner=None):
+    """``plain`` counting each run as a launch of ``wrapper``'s kernel
+    (with ``planner``, also under the route it plans for the
+    arguments)."""
     @functools.wraps(plain)
     def shim(*args, **kwargs):
         wrapper.launches += 1
+        if planner is not None:
+            wrapper.launches_by_route[planner(*args).route] += 1
         return plain(*args, **kwargs)
     return shim
 
@@ -104,11 +108,13 @@ def shims(monkeypatch):
         return dx_plain(*args, **kwargs)
     monkeypatch.setattr(qmm, "quantized_matmul_reference", qmm_shim)
     monkeypatch.setattr(qmm, "quantized_matmul_dx_reference", dx_shim)
-    for name, wrapper in (("grouped_matmul_reference", gmm.grouped_matmul),
-                          ("grouped_matmul_dw_reference",
-                           gmm.grouped_matmul_dw)):
+    for name, wrapper, planner in (
+            ("grouped_matmul_reference", gmm.grouped_matmul,
+             lambda x, w, counts: gmm.plan_call(x, w)),
+            ("grouped_matmul_dw_reference", gmm.grouped_matmul_dw,
+             lambda x, dy, counts, gw: gmm.plan_call_dw(x, dy, gw))):
         monkeypatch.setattr(gmm, name, _launching(getattr(gmm, name),
-                                                  wrapper))
+                                                  wrapper, planner))
     yield
     # the shims counted runs as launches; a later test in this process
     # reads the real wrappers' counts from zero
@@ -232,8 +238,15 @@ def test_moe_phases_run_at_tiny_size(shims, capsys):
     cases = chip_smoke.phase_kernel_gmm("cpu", {"G": 8, "Gw": 4, "C": 16},
                                         GMM_TINY)
     assert [c["kernel"] for c in cases].count("grouped_matmul_dw") == 4
-    assert all(c["empty_exact_zero"] and c["live_groups"] == 5
-               for c in cases)
+    assert all(c["empty_exact_zero"] and c["live_groups"] == 5 and
+               c["bit_equal_rerun"] for c in cases)
+    # the route each call took, as the shims count the planned one
+    assert [c["route"] for c in cases[:6]] == [
+        gmm.plan("dw" if call.endswith("dw") else "dx" if
+                 call.endswith("dx") else "fwd", 4 if call.endswith("dw")
+                 else 8, 16, k, n, torch.bfloat16).route
+        for call, k, n in GMM_TINY]
+    assert {c["route"] for c in cases[6:]} == {"f32"}
     record, engine = chip_smoke.phase_train_moe("cpu", MOE_TINY, steps=20)
     assert record["accumulate_steps"] == 2 and record["layers"] == 2
     assert record["launches_per_step"]["grouped_matmul"] == 4 * 2 * 2
@@ -264,8 +277,15 @@ def test_moe_count_check_catches_a_recompute():
     fallback counter, or a layer off sort_pallas fail the check."""
     ok = {"grouped_matmul": 4 * 8, "grouped_matmul_dw": 2 * 8,
           "flash_attention": 8, "flash_bwd_dkv": 8, "flash_bwd_dq": 8,
+          "grouped_matmul_routes": {"wgmma": 4 * 8, "mma": 0},
+          "grouped_matmul_dw_routes": {"wgmma": 2 * 8},
           "counters": {"moe/sort_pallas": 16}}
     chip_smoke.check_moe_counts(ok, 1, 4, 2, "t")
+    chip_smoke.check_moe_counts(ok, 1, 4, 2, "t", route="wgmma")
+    with pytest.raises(AssertionError, match="by route"):
+        chip_smoke.check_moe_counts(
+            dict(ok, grouped_matmul_routes={"wgmma": 4 * 8 - 1, "mma": 1}),
+            1, 4, 2, "t", route="wgmma")
     with pytest.raises(AssertionError, match="launches"):
         chip_smoke.check_moe_counts(dict(ok, grouped_matmul=6 * 8), 1, 4,
                                     2, "t")
@@ -743,9 +763,19 @@ def test_lora_kernel_phases_run_at_tiny_size(shims, capsys):
                c["rel_l2_planted"] for c in dx)
     calls = chip_smoke.lora_calls(QMM_TINY)
     assert calls[:2] == [("qkv_down", 128, 8), ("qkv_up", 8, 384)]
-    cases, deltas = chip_smoke.phase_kernel_gmm_lora("cpu", cs=(16, 40),
-                                                     calls=calls)
-    assert [c["kernel"] for c in cases].count("grouped_matmul_dw") == 8
+    cases, deltas = chip_smoke.phase_kernel_gmm_lora(
+        "cpu", cs=(16, 40), calls=calls,
+        edges=(("edge_down", 136, 8, 16), ("edge_down_dw", 64, 8, 72)))
+    assert [c["kernel"] for c in cases].count("grouped_matmul_dw") == 9
+    # x @ A and the edges on the split route, (xA) @ B (a reduction of
+    # 8) and the dw at C 40 (a reduction under 64) on mma
+    route = {c["call"] + str(c["C"]) + c["dtype"]: c["route"]
+             for c in cases}
+    assert route["qkv_down16bfloat16"] == route["edge_down16bfloat16"] \
+        == route["edge_down_dw72bfloat16"] == "split"
+    assert route["qkv_up16bfloat16"] == route["qkv_down_dw40bfloat16"] \
+        == "mma"
+    assert all(c["bit_equal_rerun"] for c in cases)
     assert all(c["empty_exact_zero"] and c["live_groups"] == 4 and
                c["G"] == 5 for c in cases)
     assert len(deltas) == 8
@@ -759,6 +789,8 @@ def test_lora_kernel_phases_run_at_tiny_size(shims, capsys):
                               "grouped_matmul_dw": 384}}
     rows = {r["name"]: r for r in chip_smoke.gmm_rows(
         [], train_moe, (cases, deltas, serve_lora, grad))}
+    assert rows["grouped_matmul"]["kernel_route"] == "split"
+    assert "ms_prev_design" in rows["grouped_matmul_dw"]
     assert rows["grouped_matmul"]["launches_by_path"] == {
         "train_moe": 768, "serve_lora_id0": 10, "serve_lora_mixed": 12,
         "grad_int8_lora": 384}
@@ -835,9 +867,15 @@ def test_lora_count_check_catches_a_fallback():
     """Kernel 8 launched other than twice a bank call, a missing site,
     or any gather-einsum fail the LoRA check."""
     ok = {"grouped_matmul": 2 * 4 * 2 * 3,
+          "grouped_matmul_routes": {"split": 4 * 2 * 3, "mma": 4 * 2 * 3},
           "counters": {"lora/grouped": 4 * 2 * 3}}
     chip_smoke.check_lora_counts(ok, 2, 3, "t")
+    chip_smoke.check_lora_counts(
+        dict(ok, grouped_matmul_routes={"f32": 2 * 4 * 2 * 3}), 2, 3, "t",
+        "float32")
     for bad in (dict(ok, grouped_matmul=5),
+                dict(ok, grouped_matmul_routes={"split": 4 * 2 * 3 - 1,
+                                                "mma": 4 * 2 * 3 + 1}),
                 dict(ok, counters={"lora/grouped": 4 * 2 * 3,
                                    "lora/fallback": 1}),
                 dict(ok, counters={"lora/grouped": 4 * 2 * 3 - 1})):
