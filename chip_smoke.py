@@ -19,7 +19,9 @@ fp32 server against the lockstep ``generate()`` and the kernel path
 against the dense PyTorch path token for token, and runs the
 ``generate`` entry point. Then training: kernel 1 with in-kernel
 dropout and the backward kernels 3 and 4 against their plain versions
-(at the 345M recipe's shape, with a bias, and at s = 4096), the 345M
+(at the 345M recipe's shape, with a bias, at s = 4096, and in bf16 at a
+ragged s = 1000 and at head_dim 128; the build fails unless their bf16
+kernels run wgmma, not mma.sync), the 345M
 pretraining recipe as written (bf16, dropout, ``save_dots``, chunked
 loss, batch 8 x 1024) for 30 steps through ``cli.train_main`` with the
 counts reset just before and read just after, one profiled training
@@ -463,7 +465,14 @@ def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
     return rec
 
 
-def sass_tensor_ops(lib_path, names=("gmm_wgmma_", "gmm_dw_wgmma_")):
+#: the wgmma kernels whose SASS ``build`` reads: kernels 8 and 9's route
+#: (a), and kernels 3 and 4 in bf16 (the only bf16 ``flash_bwd_*``
+#: kernels; the backward's fp32 ones are ``flash_bwd_*_f32``)
+WGMMA_KERNELS = ("gmm_wgmma_", "gmm_dw_wgmma_", "flash_bwd_dkv_wgmma",
+                 "flash_bwd_dq_wgmma")
+
+
+def sass_tensor_ops(lib_path, names=WGMMA_KERNELS):
     """Per kernel whose name holds one of ``names``: its ``HGMMA``
     (wgmma) and ``HMMA`` (mma.sync) instructions in the built library's
     SASS, as ``cuobjdump --dump-sass`` shows it; None where the toolkit
@@ -488,10 +497,25 @@ def sass_tensor_ops(lib_path, names=("gmm_wgmma_", "gmm_dw_wgmma_")):
     return found
 
 
+def check_wgmma_sass(sass) -> None:
+    """Raise unless every kernel of ``WGMMA_KERNELS`` is in ``sass`` and
+    holds ``HGMMA``, and the bf16 backward kernels (3 and 4) hold no
+    ``HMMA`` (mma.sync)."""
+    missing = [n for n in WGMMA_KERNELS
+               if not any(n in fn for fn in sass)]
+    if missing or not all(v["HGMMA"] > 0 for v in sass.values()):
+        raise AssertionError(f"build: a wgmma kernel is missing {missing} "
+                             f"or its SASS holds no HGMMA: {sass}")
+    mma = {fn: v for fn, v in sass.items()
+           if "flash_bwd_" in fn and v["HMMA"] > 0}
+    if mma:
+        raise AssertionError(f"build: bf16 backward kernels run mma.sync "
+                             f"(HMMA): {mma}")
+
+
 def phase_build():
     """Build the kernels from csrc/ (timed), save the compiler's report,
-    and count the route (a) kernels' tensor-core instructions in the
-    SASS."""
+    and count the wgmma kernels' tensor-core instructions in the SASS."""
     from paddlefleetx_tpu_torch.ops.cuda import build
     t0 = time.time()
     build.load()
@@ -499,10 +523,8 @@ def phase_build():
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as f:
         f.write(str(build.last_build.get("log", "")))
     sass = sass_tensor_ops(str(build.last_build.get("path")))
-    if sass is not None and (not sass or not all(
-            v["HGMMA"] > 0 for v in sass.values())):
-        raise AssertionError(f"build: the wgmma kernels' SASS holds no "
-                             f"HGMMA: {sass}")
+    if sass is not None:
+        check_wgmma_sass(sass)
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "nvcc_seconds": build.last_build.get("seconds"),
           "library": os.path.relpath(str(build.last_build.get("path")),
@@ -1440,26 +1462,36 @@ def phase_kernel1_dropout():
     return cases
 
 
+#: the backward's cases (regime, b, s, d, bias, dropout), each in bf16
+#: and fp32: the recipe's shape (b 8, h 16, s 1024, d 64, the TPU's
+#: ``_bwd_combined_kernel`` regime) with and without dropout 0.1, a
+#: [b, 1, 1, s] bias (the split-pair regime), b 2, s 4096 (the
+#: ``_bwd_fused_kernel`` regime); the first is the training path's
+BWD_CASES = (("combined", 8, 1024, 64, False, 0.1),
+             ("combined", 8, 1024, 64, False, 0.0),
+             ("split", 8, 1024, 64, True, 0.0),
+             ("fused", 2, 4096, 64, False, 0.0))
+#: bf16 only: a ragged length (s 1000: not a multiple of the kernels'
+#: 64-row tiles or 128-row blocks) and head_dim 128
+BWD_CASES_BF16 = (("ragged", 8, 1000, 64, False, 0.1),
+                  ("d128", 4, 1024, 128, False, 0.1))
+
+
 def phase_backward():
-    """Kernels 3 and 4: the recipe's shape (b 8, h 16, s 1024, d 64, the
-    TPU's ``_bwd_combined_kernel`` regime) without and with dropout 0.1,
-    a [b, 1, 1, s] bias (the split-pair regime) and b 2, s 4096 (the
-    ``_bwd_fused_kernel`` regime), each in bf16 and fp32; the first case
-    is the training path's (bf16, dropout 0.1)."""
+    """Kernels 3 and 4 at every case of ``BWD_CASES`` in bf16 and fp32,
+    then ``BWD_CASES_BF16`` in bf16."""
     import torch
     from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
     cases = []
     seed = 400
-    for dtype in (torch.bfloat16, torch.float32):
-        for regime, b, s, with_bias, rate in (
-                ("combined", 8, 1024, False, 0.1),
-                ("combined", 8, 1024, False, 0.0),
-                ("split", 8, 1024, True, 0.0),
-                ("fused", 2, 4096, False, 0.0)):
-            cases.append(bwd_case(fa, torch, dtype, b, 16, s, 64, with_bias,
-                                  rate, seed, regime))
-            seed += 1
-            torch.cuda.empty_cache()
+    runs = [(torch.bfloat16, c) for c in BWD_CASES]
+    runs += [(torch.float32, c) for c in BWD_CASES]
+    runs += [(torch.bfloat16, c) for c in BWD_CASES_BF16]
+    for dtype, (regime, b, s, d, with_bias, rate) in runs:
+        cases.append(bwd_case(fa, torch, dtype, b, 16, s, d, with_bias,
+                              rate, seed, regime))
+        seed += 1
+        torch.cuda.empty_cache()
     for c in cases:
         emit({"phase": "backward", **c})
     return cases
@@ -4066,8 +4098,9 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
     the serving case first, the training case beside it; kernels 3 and
     4: the recipe's bf16 case with dropout), the worst error over all
     its cases (max abs and normwise, with the least planted-fault
-    reading), and its launches on the main paths (serve and train),
-    each counted from zero just before its path ran. Kernels 3 and 4
+    reading), and its launches on the main paths (serve and train;
+    kernels 3 and 4 also train_moe), each counted from zero just before
+    its path ran. Kernels 3 and 4
     also carry the pair's time and the bound of the one TPU function
     they replace together (5 products, ``bound_ms_both``)."""
     k1_launch = {"serve": serve["launches"]["flash_attention"],
@@ -4113,6 +4146,9 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
              "paddlefleetx_tpu/ops/pallas/flash_attention.py:454")):
         head = bwd[0]
         err = max(c["max_abs_err"][g] for c in bwd for g in grads)
+        by_path = {"train": train["launches"][name]}
+        if moe is not None:
+            by_path["train_moe"] = moe[1]["launches"][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddlefleetx_tpu_torch/csrc/flash_bwd.cu",
@@ -4121,8 +4157,8 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
                               "flash_attention.py:485 (_bwd_combined_kernel)",
                               "paddlefleetx_tpu/ops/pallas/"
                               "flash_attention.py:555 (_bwd_fused_kernel)"],
-            "launches": train["launches"][name],
-            "launches_by_path": {"train": train["launches"][name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": err, "max_err": err,
             "max_rel_err_bf16": max(
                 max(c["max_abs_err"][g] for g in grads) / c["grad_scale"]

@@ -24,403 +24,634 @@
 // scales once at the end (:480-482). Outputs are in q's dtype;
 // accumulation is fp32 in registers and each output is written once.
 //
-// What bounds it on this card: 5 b h d s^2 FLOPs for causal attention
-// (the two recomputed products s and dP, and dV, dK, dQ) against
-// reading q, k, v, dO, lse and delta once and writing dq, dk, dv once:
-// at s = 1024 that is ~40x above the H100's ~295 FLOP/byte balance, so
-// the pair is compute bound (bf16 on the tensor cores, 989 TFLOP/s;
-// fp32 on the CUDA cores, 67 TFLOP/s, TF32 off for fp32 parity).
+// What bounds it on this card: the recipe's call (b 8, h 16, s 1024,
+// d 64, causal, bf16) does 5 b h d s^2 = 4.3e10 FLOPs of products (s and
+// dP recomputed, dV, dK, dQ) against 134 MB read or written once (q, k,
+// v, dO, O, lse, delta; dq, dk, dv): 320 FLOP/B, just above the H100's
+// ~295 bf16 FLOP/B, so the pair's bound is the tensor cores' 0.0435 ms
+// (989 TFLOP/s) with the bytes' 0.040 ms close behind (fp32 is bound by
+// the CUDA cores, 67 TFLOP/s, TF32 off for fp32
+// parity). Two kernels run 7 products instead of 5 (s and dP twice):
+// the price of determinism. One kernel would have to sum dQ across the
+// key tiles' blocks with atomics, whose order changes the bits from run
+// to run; here every output is summed in an order fixed by the shape
+// and written once, so a call is bit-identical from run to run.
 //
-// What the design does about it: bf16 runs every product as mma.sync
-// m16n8k16 with fp32 accumulators, the score fragments becoming the
-// next product's A operand in registers (as kernel 1 does). Splitting
-// into two kernels recomputes s and dP once more (7 instead of 5
-// products per score element) but needs no atomics, so the gradients
-// are deterministic; a single kernel with fp32 atomicAdd on dQ, wgmma
-// and TMA are later work. Both walk only causally live tiles and mask
-// the ragged sq / skv edges themselves, so any length works.
-// - bf16, kernel 3 (flash_bwd_dkv_mma): one 128-thread block per (b*h,
-//   64-key tile); warp w owns keys 16w..16w+15 and walks the 64-row
-//   query tiles from the first causally live one. It computes the
-//   transposed products S^T = K Q^T and dP^T = V dO^T, so that P^T and
-//   dS^T sit in registers in the A layout of dV = P^T dO and
-//   dK = dS^T Q. K, V, Q, dO and transposed copies of Q and dO live in
-//   shared memory, rows padded by 16 bytes.
-// - bf16, kernel 4 (flash_bwd_dq_mma): one 128-thread block per (b*h,
-//   64-query tile) holding q and dO fragments in registers and walking
-//   64-key tiles (K, V and K^T in shared memory) up to the causal limit.
-// - fp32 (flash_bwd_dkv_f32 / flash_bwd_dq_f32): 256 threads, four per
-//   key (kernel 3) or per query (kernel 4), each holding a quarter of
-//   the row's d values and its accumulators; dot products are reduced
-//   over the four threads by shuffles. The other side's rows are staged
-//   32 at a time in shared memory.
+// bf16 (flash_bwd_dkv_wgmma, flash_bwd_dq_wgmma), d 64 and 128, any sq
+// and skv, causal or not, bias and dropout: wgmma fed by TMA.
+// - A block is one warpgroup (128 threads) that owns 64 rows: 64 keys
+//   in kernel 3, 64 queries in kernel 4. Three blocks share an SM (two
+//   for kernel 3 at d 128), so while one waits on its products or loads
+//   the others issue. Registers set that count: ptxas allows 168 a
+//   thread at 12 warps an SM, and a warpgroup needs 128-168 at d 64. A
+//   block of two consumer warpgroups and a producer warp would be held
+//   to 168 as well (3 of its warps on one SM sub-partition; setmaxnreg
+//   does not raise what ptxas allocates) and fill the SM alone, so its
+//   loads and stores would run with nothing beside them. Overlapping a
+//   warpgroup's accumulating products with its next tile needs more
+//   than 168 registers, hence two blocks an SM; on the H100 that ran
+//   slower than three blocks without it (PERF.md, section 6).
+// - The block's own rows of two operands (K and V, or Q and dO) arrive
+//   once by TMA; a ring of 64-row tiles of the other side's two operands
+//   (3 stages at d 64, 2 at d 128) walks from the first causally live
+//   tile, each stage with a `full` mbarrier that counts the TMA bytes.
+//   Warp 0 refills a stage once the products that read it are done
+//   (kernel 3's warp 0 also stores the tile's lse, delta and -lse
+//   log2(e) there, fetched into registers a tile ahead). Tensor maps are
+//   4-D over [b, s, h, d] ({d, h, s, b}, 64 x 64 boxes, 128-byte
+//   swizzle), so TMA zero-fills rows past sq / skv, and the edge masks
+//   set their scores to zero.
+// - Kernel 3, per query tile: S^T = K Q^T and dP^T = V dO^T (wgmma
+//   m64n64k16, both operands K-major from shared memory, one commit
+//   group each); P^T = exp(S^T scale + bias - lse) and dS^T = P^T (dP^T
+//   keep / (1 - rate) - delta) in registers (tiles wholly inside the
+//   causal triangle and the edges, without a bias, skip the masks: one
+//   FFMA and one ex2 a score); then dV += P^T dO and dK += dS^T Q
+//   (m64nDk16 with A, the bf16 P^T / dS^T, from the accumulator
+//   registers, and B, dO / Q, read MN-major through the descriptor's
+//   transpose bit: no transposed copy is staged). dK is scaled once at
+//   the end.
+// - Kernel 4, per key tile: S = Q K^T, dP = dO V^T, dS, then dQ += dS K
+//   (K MN-major); dQ is scaled once at the end.
+// - Outputs leave as bf16 through the block's own boxes (no longer
+//   read) and TMA stores; rows past skv / sq are not written.
+// - Dropout: one Philox4x32-10 call per four scores. The call's four
+//   words are the keep bits of four neighbouring keys of one query
+//   (philox.cuh `group()`, unchanged), computed while S and dP run. In
+//   kernel 3 those keys are the rows of the lanes 4 apart; each of them
+//   draws 8 of the 32 (key quad, query) groups it shares with the other
+//   three, packs their keep bits as nibbles of one word, and the four
+//   words are exchanged with __shfl_sync. In kernel 4 the lanes t and
+//   t ^ 1 share each quad; each draws 8 groups and one shuffle swaps the
+//   words. The bits are those of kernel 1 and the plain version, on the
+//   same absolute coordinates.
+// - Grid (b h, 64-row tiles), the tiles of the longest causal walks
+//   launched first.
+// What bounds them as built, at the recipe's shape: without dropout the
+// pair runs the 7 products at ~40 % of the tensor cores' rate, held back
+// by each score's exp, masks and packing on 64 x 64 tiles and the wait
+// for each product; with dropout, Philox's integer multiplies (4 a round,
+// 40 a call, 2 calls for every 4 scores across the two kernels) take
+// about as long again.
+// ptxas (CUDA 12.8, -Xptxas -v), registers a thread, no spills:
+// flash_bwd_dkv_wgmma d 64 162 (dropout 168), d 128 230 (248);
+// flash_bwd_dq_wgmma d 64 128 (158), d 128 165 (168).
+// fp32 (flash_bwd_dkv_f32 / flash_bwd_dq_f32, the parity route): 256
+// threads, four per key (kernel 3) or per query (kernel 4), each holding
+// a quarter of the row's d values and its accumulators; dot products are
+// reduced over the four threads by shuffles. The other side's rows are
+// staged 32 at a time in shared memory.
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
-// ---- bf16 on the tensor cores --------------------------------------
+// ---- bf16 on wgmma -------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;   // rows of every tile (keys and queries)
-constexpr int kPad = 8;     // bf16 elements of row padding (16 B)
-
-using pfx::ld_u32;
-using pfx::mma_bf16;
+using pfx::bulk_commit;
+using pfx::bulk_wait;
+using pfx::fence_acc;
+using pfx::fence_async_smem;
+using pfx::mbar_arrive;
+using pfx::mbar_expect_tx;
+using pfx::mbar_init;
 using pfx::pack_bf16;
+using pfx::swz;
+using pfx::tma_load_4d;
+using pfx::tma_store_4d;
+using pfx::wg_desc;
+using pfx::wgmma_commit;
+using pfx::wgmma_fence;
+using pfx::wgmma_wait;
 
-// The A fragment (rows row0 .. row0 + 15, k columns kk*16 ..) of a
-// row-major [rows][ld] bf16 tile in shared memory.
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s,
-                                       int ld, int row0, int kk, int g,
-                                       int t) {
-  const __nv_bfloat16* p = s + (row0 + g) * ld + kk * 16 + t * 2;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * ld);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * ld + 8);
+constexpr int kTile = 64;          // rows of a TMA box, a ring tile, a block
+constexpr int kBox = kTile * 128;  // bytes of a box: 64 x 64 bf16, swizzled
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+constexpr int kThreads = 128;   // one warpgroup a block
+
+// The shape of kernel 3 (kDkv) or kernel 4 at head_dim D. BLOCKS share
+// an SM: 3 (ptxas then allows 168 registers a thread), but 2 for kernel
+// 3 at d 128, whose 128 fp32 accumulators of dK and dV besides the
+// scores take 230-248. Shared memory, from a 1024-byte aligned base: the
+// block's own 64 rows of two operands (K and V, or Q and dO), a 64-row
+// tile of one operand being D / 64 boxes; a ring of STAGES tiles of the
+// other side's two operands; kernel 3's lse, delta and -lse log2(e) of
+// each ring tile's queries; the barriers (own, full).
+template <int D, bool kDkv>
+struct Shape {
+  static constexpr int BLOCKS = kDkv && D == 128 ? 2 : 3;
+  static constexpr int OPERAND = (D / 64) * kBox;   // one operand, 64 rows
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int OWN = 2 * OPERAND;
+  static constexpr int RING = STAGES * 2 * OPERAND;
+  static constexpr int VECS = kDkv ? STAGES * 3 * kTile * 4 : 0;
+  static constexpr int BYTES = 1024 + OWN + RING + VECS + (1 + STAGES) * 8;
+};
+
+// mbar_wait that traps after ~10 s (2e10 cycles) instead of spinning
+// forever, so that a pipeline fault fails its launch rather than hanging
+// the card; the clock is read only once a first poll has failed.
+static __device__ __forceinline__ void bar_wait(uint64_t* bar,
+                                                uint32_t parity) {
+  if (pfx::mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!pfx::mbar_try_wait(bar, parity))
+    if (clock64() - start > 20000000000LL) __trap();
 }
 
-// Stage rows r0 .. r0 + 63 of a [b, s, h, D] bf16 tensor (batch bi,
-// head hi) into `rows` ([64][D + kPad]) and, when `cols` is given, its
-// transpose ([D][64 + kPad]); rows at or past `n` are zero.
-template <int D>
-__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ x,
-                                      __nv_bfloat16* rows,
-                                      __nv_bfloat16* cols, int bi, int hi,
-                                      int h, int n, int r0) {
-  constexpr int kChunks = D / 8;
-  const long long tok_stride = (long long)h * D;
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThreads) {
-    const int j = idx / kChunks;
-    const int c8 = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + j < n)
-      val = *reinterpret_cast<const uint4*>(
-          x + ((long long)bi * n + r0 + j) * tok_stride + (long long)hi * D +
-          c8);
-    if (rows != nullptr)
-      *reinterpret_cast<uint4*>(&rows[j * (D + kPad) + c8]) = val;
-    if (cols != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+// 2^x on the MUFU unit (ex2.approx.ftz: within 2 ulp; results below the
+// normal range flush to 0).
+static __device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+static __device__ __forceinline__ void fence_u32(uint32_t (*a)[4]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) cols[(c8 + i) * (kTile + kPad) + j] = e[i];
-    }
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// The A fragments of the four k16 steps over a 64-column accumulator
+// (columns 16 kk .. 16 kk + 15 are accumulator blocks 2 kk and 2 kk + 1).
+static __device__ __forceinline__ void acc_to_a(const float* d,
+                                                uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// S (+)= A B^T over the head dim: two K-major operands of 64 rows in
+// boxes (the row tiles of q, k, v or dO), m64n64, D / 16 k16 steps.
+template <int D>
+static __device__ __forceinline__ void product_rows(float* d,
+                                                    const unsigned char* a,
+                                                    const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kBox + (kk % 4) * 32;
+    pfx::wgmma_m64n64_ss<0, 0>(d, wg_desc(a + off, 16, 1024),
+                               wg_desc(b + off, 16, 1024), kk > 0);
   }
 }
 
+// acc += A B over the 64 rows of a ring or own tile: A (64 x 64, from
+// registers) times the tile read MN-major (its 64 rows the reduction,
+// its D columns the output's), m64nD, 4 k16 steps.
 template <int D>
-constexpr int dkv_smem_bytes() {
-  // K, V, Q, dO row-major; Q^T, dO^T; lse, delta
-  return (4 * kTile * (D + kPad) + 2 * D * (kTile + kPad)) * 2 +
-         2 * kTile * 4;
+static __device__ __forceinline__ void product_acc(float* acc,
+                                                   uint32_t (*a)[4],
+                                                   const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = wg_desc(b + kk * 2048, kBox, 1024);
+    if constexpr (D == 64)
+      pfx::wgmma_m64n64_rs<1>(acc, a[kk], db);
+    else
+      pfx::wgmma_m64n128_rs<1>(acc, a[kk], db);
+  }
 }
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  // K, V row-major; K^T
-  return (2 * kTile * (D + kPad) + D * (kTile + kPad)) * 2;
+// Four keep bits of one Philox group, bit i for key (col & ~3) + i.
+static __device__ __forceinline__ uint32_t keep_nibble(
+    const pfx::Dropout& drop, int bh, int row, int col) {
+  const uint4 w = drop.group(bh, row, col);
+  return static_cast<uint32_t>(drop.keep(w.x)) |
+         static_cast<uint32_t>(drop.keep(w.y)) << 1 |
+         static_cast<uint32_t>(drop.keep(w.z)) << 2 |
+         static_cast<uint32_t>(drop.keep(w.w)) << 3;
 }
 
-// Kernel 3, bf16: dK and dV of one 64-key tile.
+// The epilogue's staging: the warpgroup's 64 rows of `acc` (times
+// `scale`) as bf16 into the swizzled boxes at `st`, as TMA stores them.
+template <int D>
+static __device__ __forceinline__ void store_rows(const float* acc,
+                                                  float scale,
+                                                  unsigned char* st,
+                                                  int tid) {
+  const int r = (tid / 32) * 16 + (tid % 32) / 4, t = tid % 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(st + (j / 8) * kBox +
+                                   swz(r + 8 * hh, 16 * (j % 8) + 4 * t)) =
+          pack_bf16(acc[4 * j + 2 * hh] * scale,
+                    acc[4 * j + 2 * hh + 1] * scale);
+}
+
+// Kernel 3, bf16: dK and dV of the 64 keys k0 .. k0 + 63.
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const float* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int h, int sq, int skv,
-                      long long bias_sb, long long bias_sh, long long bias_sq,
-                      float sm_scale, int causal, pfx::Dropout drop) {
-  constexpr int kK = D / 16;        // k16 steps over head_dim
-  constexpr int kNb = kTile / 8;    // n8 blocks of queries per tile
-  constexpr int kDb = D / 8;        // n8 blocks of the outputs
-  constexpr int kLd = D + kPad;
-  constexpr int kLdT = kTile + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kTile * kLd;
-  __nv_bfloat16* qs = vs + kTile * kLd;
-  __nv_bfloat16* dos = qs + kTile * kLd;
-  __nv_bfloat16* qt = dos + kTile * kLd;
-  __nv_bfloat16* dot = qt + D * kLdT;
-  float* lse_s = reinterpret_cast<float*>(dot + D * kLdT);
-  float* delta_s = lse_s + kTile;
+__global__ void __launch_bounds__(kThreads, Shape<D, true>::BLOCKS)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const __grid_constant__ CUtensorMap map_dk,
+                        const __grid_constant__ CUtensorMap map_dv,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ bias, int h, int sq,
+                        int skv, long long bias_sb, long long bias_sh,
+                        long long bias_sq, float sm_scale, int causal,
+                        pfx::Dropout drop) {
+  using S = Shape<D, true>;
+  constexpr int kStages = S::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks =
+      smem_raw + ((1024 - (pfx::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* vs = ks + S::OPERAND;
+  unsigned char* ring = ks + S::OWN;
+  float* vecs = reinterpret_cast<float*>(ring + S::RING);
+  uint64_t* own_bar = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(vecs) + S::VECS);
+  uint64_t* full = own_bar + 1;
 
-  const int bh = blockIdx.y;
-  const int bi = bh / h;
-  const int hi = bh % h;
-  const int k0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int kw = warp * 16;             // this warp's keys in the tile
-  const int key_r[2] = {k0 + kw + g, k0 + kw + g + 8};
+  const int bh = blockIdx.x;
+  const int bi = bh / h, hi = bh % h;
+  const int k0 = blockIdx.y * kTile;     // causal: the longest walks first
+  const int q_first = causal ? k0 : 0;   // the first query tile that sees k0
+  const int n_tiles = k0 < skv && q_first < sq
+                          ? (sq - q_first + kTile - 1) / kTile : 0;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const float* lse_bh = lse + (long long)bh * sq;
+  const float* delta_bh = delta + (long long)bh * sq;
+
+  if (tid == 0) {
+    mbar_init(own_bar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 32);   // warp 0
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp 0 feeds the ring: fetch() reads a query tile's lse and delta
+  // into registers ahead of time, load() stores them (and -lse log2(e))
+  // into the tile's stage, every lane arriving on its `full` barrier,
+  // lane 0 with the TMA loads of its Q and dO
+  float pre_l[2], pre_d[2];
+  auto fetch = [&](int it) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q_first + it * kTile + lane + 32 * r;
+      pre_l[r] = row < sq ? lse_bh[row] : 0.f;
+      pre_d[r] = row < sq ? delta_bh[row] : 0.f;
+    }
+  };
+  auto load = [&](int it) {
+    const int stage = it % kStages;
+    float* v = vecs + stage * 3 * kTile;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      v[lane + 32 * r] = pre_l[r];
+      v[kTile + lane + 32 * r] = pre_d[r];
+      v[2 * kTile + lane + 32 * r] = -pre_l[r] * kLog2e;
+    }
+    if (lane == 0) {
+      const int q0 = q_first + it * kTile;
+      unsigned char* tile = ring + stage * 2 * S::OPERAND;
+      mbar_expect_tx(&full[stage], 2 * S::OPERAND);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(tile + c * kBox, &map_q, &full[stage], 64 * c, hi, q0,
+                    bi);
+        tma_load_4d(tile + S::OPERAND + c * kBox, &map_do, &full[stage],
+                    64 * c, hi, q0, bi);
+      }
+    } else {
+      mbar_arrive(&full[stage]);
+    }
+  };
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_expect_tx(own_bar, S::OWN);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(ks + c * kBox, &map_k, own_bar, 64 * c, hi, k0, bi);
+        tma_load_4d(vs + c * kBox, &map_v, own_bar, 64 * c, hi, k0, bi);
+      }
+    }
+    for (int it = 0; it < kStages && it < n_tiles; ++it) {
+      fetch(it);
+      load(it);
+    }
+  }
+
+  // accumulator element 4 j + 2 hh + u: key key_r[hh], query column
+  // 8 j + 2 t + u of the tile
+  const int key_r[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
   const float* bias_bh =
       bias != nullptr ? bias + bi * bias_sb + hi * bias_sh : nullptr;
+  const float scale_log2 = sm_scale * kLog2e;
+  // dropout: this lane draws the 8 Philox groups (4 keys of one query)
+  // of pairs 8 i4 .. 8 i4 + 7 of the 32 (key quad, query) pairs that it
+  // shares with the lanes 4 apart (the same t and g / 4)
+  const int i4 = g & 3;
+  const int quad_key = k0 + 16 * warp + 4 * (g >> 2) + 8 * (i4 >> 1);
 
-  stage<D>(k, ks, nullptr, bi, hi, h, skv, k0);
-  stage<D>(v, vs, nullptr, bi, hi, h, skv, k0);
+  float dv[D / 2], dk[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
 
-  float dk_acc[kDb][4], dv_acc[kDb][4];
-#pragma unroll
-  for (int j = 0; j < kDb; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  bar_wait(own_bar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % kStages;
+    const int q0 = q_first + it * kTile;
+    // the tile that goes into this stage once this one is done
+    const int next = it + kStages;
+    const bool refill = warp == 0 && next < n_tiles;
+    if (refill) fetch(next);
+    bar_wait(&full[stage], (it / kStages) & 1);
+    const unsigned char* qs = ring + stage * 2 * S::OPERAND;
+    const unsigned char* dos = qs + S::OPERAND;
+    const float* lse_s = vecs + stage * 3 * kTile;
+    const float* delta_s = lse_s + kTile;
+    const float* nl_s = lse_s + 2 * kTile;   // -lse log2(e)
 
-  // the first query tile with a row that sees a key of this tile
-  const int q_first = causal ? (k0 / kTile) * kTile : 0;
-  for (int q0 = q_first; q0 < sq; q0 += kTile) {
-    __syncthreads();   // the previous tile's readers are done
-    stage<D>(q, qs, qt, bi, hi, h, sq, q0);
-    stage<D>(dout, dos, dot, bi, hi, h, sq, q0);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool ok = q0 + i < sq;
-      lse_s[i] = ok ? lse[(long long)bh * sq + q0 + i] : 0.f;
-      delta_s[i] = ok ? delta[(long long)bh * sq + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
-    float st[kNb][4], dpt[kNb][4];
+    // S^T = K Q^T, dP^T = V dO^T (rows keys, columns queries); the first
+    // k16 step overwrites the accumulators
+    float st[32], dpt[32];
+    wgmma_fence();
+    product_rows<D>(st, ks, qs);
+    wgmma_commit();
+    product_rows<D>(dpt, vs, dos);
+    wgmma_commit();
+    // while they run: the keep bits (column c = 2 j + u of this lane is
+    // query q0 + 8 j + 2 t + u)
+    uint32_t m[4] = {0u, 0u, 0u, 0u};
+    if constexpr (kDrop) {
+      uint32_t mine = 0;
 #pragma unroll
-    for (int nb = 0; nb < kNb; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kK; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, ks, kLd, kw, kk, g, t);
-      load_a(va, vs, kLd, kw, kk, g, t);
-#pragma unroll
-      for (int nb = 0; nb < kNb; ++nb) {
-        const __nv_bfloat16* qr = &qs[(nb * 8 + g) * kLd + kk * 16 + t * 2];
-        mma_bf16(st[nb], ka, ld_u32(qr), ld_u32(qr + 8));
-        const __nv_bfloat16* dr = &dos[(nb * 8 + g) * kLd + kk * 16 + t * 2];
-        mma_bf16(dpt[nb], va, ld_u32(dr), ld_u32(dr + 8));
+      for (int n = 0; n < 8; ++n) {
+        const int j = 4 * (i4 & 1) + (n >> 1);
+        mine |= keep_nibble(drop, bh, q0 + 8 * j + 2 * t + (n & 1),
+                            quad_key) << (4 * n);
       }
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        m[o] = __shfl_sync(kFullMask, mine, (lane & ~12) | (o << 2)) >> i4;
     }
-    // element e of block nb: key key_r[e >> 1], query q0 + nb*8 + 2t +
-    // (e & 1); st becomes P^T (dropped, for dV), dpt becomes dS^T
+    // a tile wholly inside the causal triangle and the edges, without a
+    // bias, needs no mask
+    const bool inner = bias_bh == nullptr && (!causal || q0 > k0) &&
+                       q0 + kTile <= sq && k0 + kTile <= skv;
+    wgmma_wait<1>();   // S^T is done
+    fence_acc<32>(st);
+    if (inner) {
 #pragma unroll
-    for (int nb = 0; nb < kNb; ++nb)
+      for (int e = 0; e < 32; ++e)
+        st[e] = ex2(fmaf(st[e], scale_log2,
+                         nl_s[8 * (e >> 2) + 2 * t + (e & 1)]));
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key_r[e >> 1];
-        const int qc = nb * 8 + t * 2 + (e & 1);
+      for (int e = 0; e < 32; ++e) {
+        const int key = key_r[(e >> 1) & 1];
+        const int qc = 8 * (e >> 2) + 2 * t + (e & 1);
         const int query = q0 + qc;
+        float sv = st[e] * sm_scale;
+        if (bias_bh != nullptr && key < skv && query < sq)
+          sv += bias_bh[query * bias_sq + key];
         const bool live = key < skv && query < sq && !(causal && key > query);
-        float p = 0.f;
-        if (live) {
-          float sv = st[nb][e] * sm_scale;
-          if (bias_bh != nullptr) sv += bias_bh[query * bias_sq + key];
-          p = expf(sv - lse_s[qc]);
-        }
-        float dp = dpt[nb][e];
-        float p_dv = p;
-        if (kDrop) {
-          const bool kp = drop.keep(bh, query, key);
-          p_dv = kp ? p * drop.scale : 0.f;
-          dp = kp ? dp * drop.scale : 0.f;
-        }
-        st[nb][e] = p_dv;
-        dpt[nb][e] = p * (dp - delta_s[qc]);
-      }
-    // dV += P^T dO, dK += dS^T Q: k16 step kk is score blocks 2kk, 2kk+1
-#pragma unroll
-    for (int kk = 0; kk < kNb / 2; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-          pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-          pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-          pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t sa[4] = {
-          pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-          pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-          pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-          pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < kDb; ++j) {
-        const __nv_bfloat16* dr = &dot[(j * 8 + g) * kLdT + kk * 16 + t * 2];
-        mma_bf16(dv_acc[j], pa, ld_u32(dr), ld_u32(dr + 8));
-        const __nv_bfloat16* qr = &qt[(j * 8 + g) * kLdT + kk * 16 + t * 2];
-        mma_bf16(dk_acc[j], sa, ld_u32(qr), ld_u32(qr + 8));
+        st[e] = live ? ex2((sv - lse_s[qc]) * kLog2e) : 0.f;
       }
     }
+    wgmma_wait<0>();
+    fence_acc<32>(dpt);
+    // st becomes P^T (dropped, for dV), dpt becomes dS^T; element e =
+    // 4 j + 2 hh + u is (query column c = 2 j + u, key quad pair
+    // 16 hh + c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int c = 2 * (e >> 2) + (e & 1);
+      const float p = st[e];
+      float dp = dpt[e];
+      float p_dv = p;
+      if constexpr (kDrop) {
+        const int pair = 16 * ((e >> 1) & 1) + c;
+        const bool kp = (m[pair >> 3] >> (4 * (pair & 7))) & 1u;
+        p_dv = kp ? p * drop.scale : 0.f;
+        dp = kp ? dp * drop.scale : 0.f;
+      }
+      st[e] = p_dv;
+      dpt[e] = p * (dp - delta_s[8 * (e >> 2) + 2 * t + (e & 1)]);
+    }
+    // dV += P^T dO, dK += dS^T Q (dO, Q read MN-major); then the stage is
+    // free
+    uint32_t pa[4][4], sa[4][4];
+    acc_to_a(st, pa);
+    acc_to_a(dpt, sa);
+    wgmma_fence();
+    product_acc<D>(dv, pa, dos);
+    product_acc<D>(dk, sa, qs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<D / 2>(dv);
+    fence_acc<D / 2>(dk);
+    fence_u32(pa);
+    fence_u32(sa);
+    if (refill) load(next);
   }
 
-  const long long tok_stride = (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key_r[i];
-    if (key >= skv) continue;
-    const long long off =
-        ((long long)bi * skv + key) * tok_stride + (long long)hi * D;
-#pragma unroll
-    for (int j = 0; j < kDb; ++j) {
-      *reinterpret_cast<uint32_t*>(&dk[off + j * 8 + t * 2]) =
-          pack_bf16(dk_acc[j][2 * i] * sm_scale,
-                    dk_acc[j][2 * i + 1] * sm_scale);
-      *reinterpret_cast<uint32_t*>(&dv[off + j * 8 + t * 2]) =
-          pack_bf16(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+  // every product is done: the K and V boxes take dK and dV
+  if (k0 < skv) {
+    store_rows<D>(dk, sm_scale, ks, tid);
+    store_rows<D>(dv, 1.f, vs, tid);
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0) {
+      for (int c = 0; c < D / 64; ++c) {
+        tma_store_4d(&map_dk, ks + c * kBox, 64 * c, hi, k0, bi);
+        tma_store_4d(&map_dv, vs + c * kBox, 64 * c, hi, k0, bi);
+      }
+      bulk_commit();
+      bulk_wait();
     }
   }
 }
 
-// Kernel 4, bf16: dQ of one 64-query tile.
+// Kernel 4, bf16: dQ of the 64 queries q0 .. q0 + 63.
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ dq, int h, int sq, int skv,
-                     long long bias_sb, long long bias_sh, long long bias_sq,
-                     float sm_scale, int causal, pfx::Dropout drop) {
-  constexpr int kK = D / 16;
-  constexpr int kNb = kTile / 8;    // n8 blocks of keys per tile
-  constexpr int kDb = D / 8;
-  constexpr int kLd = D + kPad;
-  constexpr int kLdT = kTile + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kTile * kLd;
-  __nv_bfloat16* kt = vs + kTile * kLd;
+__global__ void __launch_bounds__(kThreads, Shape<D, false>::BLOCKS)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const __grid_constant__ CUtensorMap map_dq,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ bias, int h, int sq,
+                       int skv, long long bias_sb, long long bias_sh,
+                       long long bias_sq, float sm_scale, int causal,
+                       pfx::Dropout drop) {
+  using S = Shape<D, false>;
+  constexpr int kStages = S::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs =
+      smem_raw + ((1024 - (pfx::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* dos = qs + S::OPERAND;
+  unsigned char* ring = qs + S::OWN;
+  uint64_t* own_bar = reinterpret_cast<uint64_t*>(ring + S::RING);
+  uint64_t* full = own_bar + 1;
 
-  const int bh = blockIdx.y;
-  const int bi = bh / h;
-  const int hi = bh % h;
-  const int q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int r0 = q0 + warp * 16 + g;   // this thread's two rows
-  const int r1 = r0 + 8;
-  const long long tok_stride = (long long)h * D;
+  const int bh = blockIdx.x;
+  const int bi = bh / h, hi = bh % h;
+  // causal: the longest walks (the last query tiles) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int kv_end = causal ? min(skv, q0 + kTile) : skv;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
 
-  // q and dO fragments: a0 (r0, c..c+1), a1 (r1, c..), a2 (r0, c+8..),
-  // a3 (r1, c+8..)
-  uint32_t qa[kK][4], da[kK][4];
-  {
-    const long long off0 =
-        ((long long)bi * sq + r0) * tok_stride + (long long)hi * D;
-    const long long off1 = off0 + 8 * tok_stride;
-#pragma unroll
-    for (int kk = 0; kk < kK; ++kk) {
-      const int c = kk * 16 + t * 2;
-      qa[kk][0] = r0 < sq ? ld_u32(q + off0 + c) : 0u;
-      qa[kk][1] = r1 < sq ? ld_u32(q + off1 + c) : 0u;
-      qa[kk][2] = r0 < sq ? ld_u32(q + off0 + c + 8) : 0u;
-      qa[kk][3] = r1 < sq ? ld_u32(q + off1 + c + 8) : 0u;
-      da[kk][0] = r0 < sq ? ld_u32(dout + off0 + c) : 0u;
-      da[kk][1] = r1 < sq ? ld_u32(dout + off1 + c) : 0u;
-      da[kk][2] = r0 < sq ? ld_u32(dout + off0 + c + 8) : 0u;
-      da[kk][3] = r1 < sq ? ld_u32(dout + off1 + c + 8) : 0u;
-    }
+  if (tid == 0) {
+    mbar_init(own_bar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int rows[2] = {r0, r1};
+  __syncthreads();
+
+  // thread 0 feeds the ring: the K and V of key tile it into its stage
+  auto load = [&](int it) {
+    const int stage = it % kStages;
+    unsigned char* tile = ring + stage * 2 * S::OPERAND;
+    mbar_expect_tx(&full[stage], 2 * S::OPERAND);
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_4d(tile + c * kBox, &map_k, &full[stage], 64 * c, hi,
+                  it * kTile, bi);
+      tma_load_4d(tile + S::OPERAND + c * kBox, &map_v, &full[stage],
+                  64 * c, hi, it * kTile, bi);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(own_bar, S::OWN);
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_4d(qs + c * kBox, &map_q, own_bar, 64 * c, hi, q0, bi);
+      tma_load_4d(dos + c * kBox, &map_do, own_bar, 64 * c, hi, q0, bi);
+    }
+    for (int it = 0; it < kStages && it < n_tiles; ++it) load(it);
+  }
+
+  // accumulator element 4 j + 2 hh + u: query row_r[hh], key column
+  // 8 j + 2 t + u of the tile
+  const int row_r[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
   float lse_r[2], delta_r[2];
   const float* b_r[2] = {nullptr, nullptr};
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool ok = rows[i] < sq;
-    lse_r[i] = ok ? lse[(long long)bh * sq + rows[i]] : 0.f;
-    delta_r[i] = ok ? delta[(long long)bh * sq + rows[i]] : 0.f;
+  for (int hh = 0; hh < 2; ++hh) {
+    const bool ok = row_r[hh] < sq;
+    lse_r[hh] = ok ? lse[(long long)bh * sq + row_r[hh]] : 0.f;
+    delta_r[hh] = ok ? delta[(long long)bh * sq + row_r[hh]] : 0.f;
     if (bias != nullptr)
-      b_r[i] = bias + bi * bias_sb + hi * bias_sh +
-               (long long)min(rows[i], sq - 1) * bias_sq;
+      b_r[hh] = bias + bi * bias_sb + hi * bias_sh +
+                (long long)min(row_r[hh], sq - 1) * bias_sq;
+  }
+  const float scale_log2 = sm_scale * kLog2e;
+  const float nl_r[2] = {-lse_r[0] * kLog2e, -lse_r[1] * kLog2e};
+  // dropout: the lanes t and t ^ 1 hold two keys each of the same key
+  // quads; this lane draws the 8 groups (hh, j) with j % 2 == t % 2
+  const int par = t & 1;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  bar_wait(own_bar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % kStages;
+    const int n0 = it * kTile;
+    // the tile that goes into this stage once this one is done
+    const int next = it + kStages;
+    const bool refill = tid == 0 && next < n_tiles;
+    bar_wait(&full[stage], (it / kStages) & 1);
+    const unsigned char* ks = ring + stage * 2 * S::OPERAND;
+    const unsigned char* vs = ks + S::OPERAND;
+
+    // S = Q K^T, dP = dO V^T; the first k16 step overwrites them
+    float s[32], dp[32];
+    wgmma_fence();
+    product_rows<D>(s, qs, ks);
+    wgmma_commit();
+    product_rows<D>(dp, dos, vs);
+    wgmma_commit();
+    // while they run: the keep bits
+    uint32_t mine = 0, other = 0;
+    if constexpr (kDrop) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int j = 2 * (n & 3) + par;
+        mine |= keep_nibble(drop, bh, row_r[n >> 2],
+                            n0 + 8 * j + 4 * (t >> 1)) << (4 * n);
+      }
+      other = __shfl_xor_sync(kFullMask, mine, 1);
+      mine >>= 2 * par;
+      other >>= 2 * par;
+    }
+    // a tile wholly inside the causal triangle and the edges, without a
+    // bias, needs no mask
+    const bool inner = bias == nullptr && (!causal || n0 < q0) &&
+                       n0 + kTile <= skv && q0 + kTile <= sq;
+    wgmma_wait<1>();   // S is done
+    fence_acc<32>(s);
+    if (inner) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        s[e] = ex2(fmaf(s[e], scale_log2, nl_r[(e >> 1) & 1]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int hh = (e >> 1) & 1;
+        const int row = row_r[hh];
+        const int key = n0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        float sv = s[e] * sm_scale;
+        if (b_r[hh] != nullptr && key < skv) sv += b_r[hh][key];
+        const bool live = key < skv && row < sq && !(causal && key > row);
+        s[e] = live ? ex2((sv - lse_r[hh]) * kLog2e) : 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc<32>(dp);
+    // s becomes dS; element e = 4 j + 2 hh + u holds key 2 t + u of quad
+    // (hh, j): bit 4 (4 hh + j / 2) + 2 (t % 2) + u of the word of the
+    // lane that drew it
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int j = e >> 2, hh = (e >> 1) & 1, u = e & 1;
+      float d = dp[e];
+      if constexpr (kDrop) {
+        const uint32_t w = (j & 1) == par ? mine : other;
+        const bool kp = (w >> (4 * (4 * hh + (j >> 1)) + u)) & 1u;
+        d = kp ? d * drop.scale : 0.f;
+      }
+      s[e] = s[e] * (d - delta_r[hh]);
+    }
+    // dQ += dS K (K read MN-major); then the stage is free
+    uint32_t sa[4][4];
+    acc_to_a(s, sa);
+    wgmma_fence();
+    product_acc<D>(dq, sa, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<D / 2>(dq);
+    fence_u32(sa);
+    if (refill) load(next);
   }
 
-  float acc[kDb][4];
-#pragma unroll
-  for (int j = 0; j < kDb; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const int warp_last_row = q0 + warp * 16 + 15;
-  const int kv_end = causal ? min(skv, q0 + kTile) : skv;
-  for (int n0 = 0; n0 < kv_end; n0 += kTile) {
-    __syncthreads();   // the previous tile's readers are done
-    stage<D>(k, ks, kt, bi, hi, h, skv, n0);
-    stage<D>(v, vs, nullptr, bi, hi, h, skv, n0);
+  // every product is done: the Q boxes take dQ
+  if (q0 < sq) {
+    store_rows<D>(dq, sm_scale, qs, tid);
+    fence_async_smem();
     __syncthreads();
-    // every key of this tile lies past every row of this warp
-    if (causal && n0 > warp_last_row) continue;
-
-    float s[kNb][4], dp[kNb][4];
-#pragma unroll
-    for (int nb = 0; nb < kNb; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kK; ++kk) {
-        const __nv_bfloat16* kr = &ks[(nb * 8 + g) * kLd + kk * 16 + t * 2];
-        mma_bf16(s[nb], qa[kk], ld_u32(kr), ld_u32(kr + 8));
-        const __nv_bfloat16* vr = &vs[(nb * 8 + g) * kLd + kk * 16 + t * 2];
-        mma_bf16(dp[nb], da[kk], ld_u32(vr), ld_u32(vr + 8));
-      }
+    if (tid == 0) {
+      for (int c = 0; c < D / 64; ++c)
+        tma_store_4d(&map_dq, qs + c * kBox, 64 * c, hi, q0, bi);
+      bulk_commit();
+      bulk_wait();
     }
-    // element e: row rows[e >> 1], key n0 + nb*8 + 2t + (e & 1); s
-    // becomes dS
-#pragma unroll
-    for (int nb = 0; nb < kNb; ++nb)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = rows[i];
-        const int col = n0 + nb * 8 + t * 2;
-        bool kp[2] = {true, true};
-        if (kDrop) drop.keep_pair(bh, row, col, kp);
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int e = 2 * i + u;
-          const int key = col + u;
-          const bool live = key < skv && !(causal && key > row);
-          float p = 0.f;
-          if (live) {
-            float sv = s[nb][e] * sm_scale;
-            if (b_r[i] != nullptr) sv += b_r[i][key];
-            p = expf(sv - lse_r[i]);
-          }
-          float d = dp[nb][e];
-          if (kDrop) d = kp[u] ? d * drop.scale : 0.f;
-          s[nb][e] = p * (d - delta_r[i]);
-        }
-      }
-    // dQ += dS K: k16 step kk is score blocks 2kk, 2kk+1
-#pragma unroll
-    for (int kk = 0; kk < kNb / 2; ++kk) {
-      const uint32_t sa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < kDb; ++j) {
-        const __nv_bfloat16* kr = &kt[(j * 8 + g) * kLdT + kk * 16 + t * 2];
-        mma_bf16(acc[j], sa, ld_u32(kr), ld_u32(kr + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= sq) continue;
-    __nv_bfloat16* op =
-        dq + ((long long)bi * sq + rows[i]) * tok_stride + (long long)hi * D;
-#pragma unroll
-    for (int j = 0; j < kDb; ++j)
-      *reinterpret_cast<uint32_t*>(&op[j * 8 + t * 2]) =
-          pack_bf16(acc[j][2 * i] * sm_scale, acc[j][2 * i + 1] * sm_scale);
   }
 }
 
@@ -692,39 +923,62 @@ struct Args {
   pfx::Dropout drop;
 };
 
+// The 4-D tensor map of a [b, s, h, d] bf16 tensor, dims {d, h, s, b},
+// boxes of 64 d values x 1 head x 64 rows (one swizzled 8 KB tile).
+bool map_bshd(CUtensorMap* map, const void* p, int b, int s, int h, int d) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(h) * d * 2,
+                                 static_cast<cuuint64_t>(s) * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(kTile), 1};
+  return pfx::make_tensor_map(map, p, 4, dims, strides, box);
+}
+
 template <int D, bool kDrop>
 int dkv_bf16(const Args& a, void* dk, void* dv, cudaStream_t st) {
-  constexpr int bytes = dkv_smem_bytes<D>();
+  using S = Shape<D, true>;
+  constexpr int bytes = S::BYTES;
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  if (!map_bshd(&mq, a.q, a.b, a.sq, a.h, D) ||
+      !map_bshd(&mk, a.k, a.b, a.skv, a.h, D) ||
+      !map_bshd(&mv, a.v, a.b, a.skv, a.h, D) ||
+      !map_bshd(&mdo, a.dout, a.b, a.sq, a.h, D) ||
+      !map_bshd(&mdk, dk, a.b, a.skv, a.h, D) ||
+      !map_bshd(&mdv, dv, a.b, a.skv, a.h, D))
+    return static_cast<int>(cudaErrorNotSupported);
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma<D, kDrop>,
+      flash_bwd_dkv_wgmma<D, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((a.skv + kTile - 1) / kTile, a.b * a.h);
-  flash_bwd_dkv_mma<D, kDrop><<<grid, kThreads, bytes, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, a.bias,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.h,
-      a.sq, a.skv, a.sb, a.sh, a.sqs, a.scale, a.causal, a.drop);
+  const dim3 grid(a.b * a.h, (a.skv + kTile - 1) / kTile);
+  flash_bwd_dkv_wgmma<D, kDrop><<<grid, kThreads, bytes, st>>>(
+      mq, mk, mv, mdo, mdk, mdv, a.lse, a.delta, a.bias, a.h, a.sq, a.skv,
+      a.sb, a.sh, a.sqs, a.scale, a.causal, a.drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kDrop>
 int dq_bf16(const Args& a, void* dq, cudaStream_t st) {
-  constexpr int bytes = dq_smem_bytes<D>();
+  using S = Shape<D, false>;
+  constexpr int bytes = S::BYTES;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if (!map_bshd(&mq, a.q, a.b, a.sq, a.h, D) ||
+      !map_bshd(&mk, a.k, a.b, a.skv, a.h, D) ||
+      !map_bshd(&mv, a.v, a.b, a.skv, a.h, D) ||
+      !map_bshd(&mdo, a.dout, a.b, a.sq, a.h, D) ||
+      !map_bshd(&mdq, dq, a.b, a.sq, a.h, D))
+    return static_cast<int>(cudaErrorNotSupported);
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_mma<D, kDrop>,
+      flash_bwd_dq_wgmma<D, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((a.sq + kTile - 1) / kTile, a.b * a.h);
-  flash_bwd_dq_mma<D, kDrop><<<grid, kThreads, bytes, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, a.bias,
-      static_cast<__nv_bfloat16*>(dq), a.h, a.sq, a.skv, a.sb, a.sh, a.sqs,
-      a.scale, a.causal, a.drop);
+  const dim3 grid(a.b * a.h, (a.sq + kTile - 1) / kTile);
+  flash_bwd_dq_wgmma<D, kDrop><<<grid, kThreads, bytes, st>>>(
+      mq, mk, mv, mdo, mdq, a.lse, a.delta, a.bias, a.h, a.sq, a.skv, a.sb,
+      a.sh, a.sqs, a.scale, a.causal, a.drop);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,15 @@ from paddlefleetx_tpu_torch.models.gpt.model import build_model
 
 CPU = torch.device("cpu")
 
+#: One intra-op thread in every test process. The suite runs under
+#: pytest-xdist, several workers on a few cores, and PyTorch's default of
+#: one thread per core makes every tiny CPU op of one worker wait on
+#: threads that the others keep busy (the chip-smoke training rehearsal
+#: alone on 8 cores: 70 s with 8 threads, 14 s with one). Each worker
+#: collects every test file, so each imports this module before it runs
+#: a test.
+torch.set_num_threads(1)
+
 
 def tiny_kwargs(**over):
     """A 2-layer, hidden-128, head_dim-64 GPT (head_dim 64 is what the

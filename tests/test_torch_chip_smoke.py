@@ -5,8 +5,6 @@ stand in for the launch counts), its bound and trace arithmetic is
 right, and without a CUDA device it exits non-zero and prints no result
 line."""
 
-import functools
-import json
 import os
 import shutil
 import subprocess
@@ -16,260 +14,12 @@ import types
 import pytest
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-import chip_smoke  # noqa: E402
-from _torch_parity import one_thread  # noqa: E402
-from paddlefleetx_tpu_torch.observability import metrics  # noqa: E402
-from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
-from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm  # noqa: E402
-from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm  # noqa: E402
-
-TINY = ["Model.num_layers=2", "Model.hidden_size=128",
-        "Model.num_attention_heads=2", "Model.ffn_hidden_size=256",
-        "Model.vocab_size=300", "Model.max_position_embeddings=160"]
-KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
-               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms"}
-
-
-def _counting(fn):
-    """A decode wrapper that counts its runs as the kernel counts its
-    launches: the int8 instance (KV scales given) apart."""
-    @functools.wraps(fn)
-    def shim(*args, **kwargs):
-        if kwargs.get("k_scale") is not None:
-            shim.launches_int8 += 1
-        else:
-            shim.launches += 1
-        return fn(*args, **kwargs)
-    shim.launches = 0
-    shim.launches_int8 = 0
-    return shim
-
-
-def _launching(plain, wrapper, planner=None):
-    """``plain`` counting each run as a launch of ``wrapper``'s kernel
-    (with ``planner``, also under the route it plans for the
-    arguments)."""
-    @functools.wraps(plain)
-    def shim(*args, **kwargs):
-        wrapper.launches += 1
-        if planner is not None:
-            wrapper.launches_by_route[planner(*args).route] += 1
-        return plain(*args, **kwargs)
-    return shim
-
-
-@pytest.fixture
-def shims(monkeypatch):
-    """Count every run of a kernel's plain version as a launch of the
-    kernel (on the CPU the wrappers launch nothing; a recompute that
-    reuses a saved attention output runs neither), and leave the global
-    registry as found."""
-    fwd_plain = fa.flash_attention_reference
-    bwd_plain = fa.flash_attention_backward_reference
-
-    def fwd_shim(*args, **kwargs):
-        fa.flash_attention.launches += 1
-        return fwd_plain(*args, **kwargs)
-
-    def bwd_shim(*args, **kwargs):
-        fa.flash_attention_backward.launches_dkv += 1
-        fa.flash_attention_backward.launches_dq += 1
-        return bwd_plain(*args, **kwargs)
-    monkeypatch.setattr(fa, "flash_attention_reference", fwd_shim)
-    monkeypatch.setattr(fa, "flash_attention_backward_reference", bwd_shim)
-    decode = _counting(fa.flash_decode)
-    ragged = fa.flash_decode_ragged
-
-    def ragged_shim(*args, **kwargs):
-        # kernel 2's second entry point counts in flash_decode.launches
-        if kwargs.get("k_scale") is not None:
-            decode.launches_int8 += 1
-        else:
-            decode.launches += 1
-        return ragged(*args, **kwargs)
-    monkeypatch.setattr(fa, "flash_decode", decode)
-    monkeypatch.setattr(fa, "flash_decode_ragged", ragged_shim)
-    for name in ("flash_decode_paged", "flash_decode_verify",
-                 "flash_decode_paged_verify"):
-        monkeypatch.setattr(fa, name, _counting(getattr(fa, name)))
-    qmm_plain = qmm.quantized_matmul_reference
-    dx_plain = qmm.quantized_matmul_dx_reference
-
-    def qmm_shim(*args, **kwargs):
-        qmm.quantized_matmul.launches += 1
-        return qmm_plain(*args, **kwargs)
-
-    def dx_shim(*args, **kwargs):
-        qmm.quantized_matmul.dx_launches += 1
-        return dx_plain(*args, **kwargs)
-    monkeypatch.setattr(qmm, "quantized_matmul_reference", qmm_shim)
-    monkeypatch.setattr(qmm, "quantized_matmul_dx_reference", dx_shim)
-    for name, wrapper, planner in (
-            ("grouped_matmul_reference", gmm.grouped_matmul,
-             lambda x, w, counts: gmm.plan_call(x, w)),
-            ("grouped_matmul_dw_reference", gmm.grouped_matmul_dw,
-             lambda x, dy, counts, gw: gmm.plan_call_dw(x, dy, gw))):
-        monkeypatch.setattr(gmm, name, _launching(getattr(gmm, name),
-                                                  wrapper, planner))
-    yield
-    # the shims counted runs as launches; a later test in this process
-    # reads the real wrappers' counts from zero
-    chip_smoke.reset_counts()
-    metrics.get_registry().reset()
-    metrics.set_enabled(False)
-
-
-def _lines(capsys):
-    out = capsys.readouterr().out.splitlines()
-    return [json.loads(line) for line in out if line.startswith("{")]
-
-
-def test_serving_phases_run_at_tiny_size(shims, capsys):
-    serve, module = chip_smoke.phase_serve("cpu", TINY, requests=5,
-                                           slots=3, lo=5, hi=60)
-    assert module.model_config.num_layers == 2
-    assert serve["launches"] == {"flash_attention": 5 * 2,
-                                 "flash_decode": serve["decode_ticks"] * 2}
-    assert serve["counters"]["serving/admitted"] == 5
-    chip_smoke.phase_serve_cli("cpu", TINY)
-    chip_smoke.phase_parity("cpu", TINY, hi=60)
-    chip_smoke.phase_generate_cli("cpu", TINY)
-    phases = [d.get("phase") for d in _lines(capsys)]
-    for phase in ("serve", "serve_cli", "parity", "generate_cli"):
-        assert phase in phases
-    case = {"dtype": "bfloat16", "tol": 2e-2, "max_abs_err": 1e-3,
-            "ms": 0.1, "call_ms": 0.2, "plain_ms": 1.0, "library_ms": 0.05,
-            "bound_ms": 0.01, "bound_by": "bytes", "b": 1, "h": 16,
-            "s": 512, "d": 64, "bias": False, "rel_l2": 3e-3,
-            "rel_l2_planted": 0.1}
-    bwd = {"regime": "combined", "dtype": "bfloat16", "b": 8, "h": 16,
-           "s": 1024, "d": 64, "bias": False, "dropout": 0.1,
-           "max_abs_err": {"dq": 0.01, "dk": 0.02, "dv": 0.03},
-           "grad_scale": 6.0, "tol": 1e-2, "tol_kind": "relative",
-           "plain_ms": 9.0, "library_ms": 1.0, "ms_dkv": 2.0,
-           "call_ms_dkv": 2.1, "ms_dq": 1.5, "call_ms_dq": 1.6,
-           "bound_ms_dkv": 0.4, "bound_by_dkv": "operations",
-           "bound_ms_dq": 0.3, "bound_by_dq": "operations",
-           "bound_ms_both": 0.5, "bound_by_both": "operations",
-           "rel_l2": {"dq": 4e-3, "dk": 5e-3, "dv": 3e-3},
-           "rel_l2_planted": {"dq": 0.2, "dk": 0.1, "dv": 0.3}}
-    train = {"launches": {"flash_attention": 4, "flash_bwd_dkv": 4,
-                          "flash_bwd_dq": 4}}
-    line = chip_smoke.kernels_line(
-        [case], [dict(case, S=1024)], serve,
-        [dict(case, dropout=0.1, tol=4e-2)], [bwd], train)
-    assert [k["name"] for k in line["kernels"]] == [
-        "flash_attention", "flash_decode", "flash_bwd_dkv", "flash_bwd_dq"]
-    for row in line["kernels"]:
-        assert KERNEL_KEYS <= set(row)
-    assert line["kernels"][1]["launches"] == serve["launches"][
-        "flash_decode"]
-    assert line["kernels"][0]["launches"] == 4 + serve["launches"][
-        "flash_attention"]
-    assert line["kernels"][0]["tol"] == {"bfloat16": 2e-2,
-                                         "bfloat16_dropout": 4e-2}
-    assert line["kernels"][2]["max_abs_err"] == 0.03
-    assert line["kernels"][3]["max_abs_err"] == 0.01
-    assert line["kernels"][3]["ms"] == 1.5
-    # the pair is held to the bound of the one TPU function it replaces
-    assert line["kernels"][2]["pair_ms"] == 3.5
-    assert line["kernels"][2]["pair_bound_ms"] == 0.5
-    assert line["kernels"][2]["max_rel_l2"] == 5e-3
-    assert line["kernels"][2]["min_rel_l2_planted"] == 0.1
-
-
-TRAIN_TINY = ["Model.num_layers=2", "Model.hidden_size=128",
-              "Model.num_attention_heads=2", "Model.ffn_hidden_size=256",
-              "Model.vocab_size=300", "Model.max_position_embeddings=64",
-              "Data.Train.dataset.max_seq_len=64",
-              "Data.Eval.dataset.max_seq_len=64",
-              "Global.local_batch_size=2", "Global.micro_batch_size=2"]
-
-
-def test_training_phases_run_at_tiny_size(shims, capsys):
-    """The recipe's training path as the chip run drives it (bf16,
-    dropout, save_dots, chunked loss), cut to a tiny size: the loss
-    falls, every step launches kernels 1, 3 and 4 once per layer, the
-    fp32 kernel path equals the dense path, and the entry point saves
-    and resumes."""
-    record, engine = chip_smoke.phase_train("cpu", TRAIN_TINY, steps=30)
-    assert record["launches_per_step"] == {
-        "flash_attention": 2, "flash_bwd_dkv": 2, "flash_bwd_dq": 2}
-    assert record["recompute"] == "save_dots" and record["loss_chunks"] == 8
-    assert record["mean_last5"] < record["mean_first5"]
-    assert engine.module.model_config.dtype == "bfloat16"
-    chip_smoke.phase_train_parity("cpu", TRAIN_TINY)
-    with one_thread():
-        chip_smoke.phase_train_cli("cpu", TRAIN_TINY)
-    lines = {d.get("phase"): d for d in _lines(capsys)}
-    for phase in ("train", "train_parity", "train_cli"):
-        assert phase in lines
-    parity = lines["train_parity"]
-    assert parity["worst_leaf_rel_diff"] <= parity["tol"]["grad_leaf_rel"] \
-        < parity["planted_dq_worst_leaf_rel_diff"]
-    assert lines["train_cli"]["bit_exact"]   # the CPU sums in one order
-
-
-#: the 8x345M MoE recipe cut to a tiny size (hidden 64, 4 experts)
-MOE_TINY = ["Model.num_layers=2", "Model.hidden_size=64",
-            "Model.num_attention_heads=1", "Model.ffn_hidden_size=128",
-            "Model.vocab_size=300", "Model.max_position_embeddings=64",
-            "Model.moe_num_experts=4", "Data.Train.dataset.max_seq_len=64",
-            "Data.Eval.dataset.max_seq_len=64", "Global.local_batch_size=4",
-            "Global.micro_batch_size=2"]
-#: the six expert-GEMM calls at a tiny size (K, N multiples of the
-#: 64-wide tiles the normwise check reads)
-GMM_TINY = (("fc1", 64, 128), ("fc2", 128, 64), ("fc1_dx", 128, 64),
-            ("fc2_dx", 64, 128), ("fc1_dw", 64, 128), ("fc2_dw", 128, 64))
-
-
-def test_moe_phases_run_at_tiny_size(shims, capsys):
-    """The MoE slice's phases as the chip run drives them, cut to a tiny
-    size: kernels 8 and 9 (their plain versions here) against the plain
-    versions with the planted empty groups exactly zero; the recipe's
-    training path (bf16, dropout, save_dots, sort_pallas, 2
-    microbatches) with kernel 8 at 4 and kernel 9 at 2 a layer and
-    microbatch and a falling loss; sort_pallas against sort in fp32 and
-    bf16; the kernels line's rows."""
-    cases = chip_smoke.phase_kernel_gmm("cpu", {"G": 8, "Gw": 4, "C": 16},
-                                        GMM_TINY)
-    assert [c["kernel"] for c in cases].count("grouped_matmul_dw") == 4
-    assert all(c["empty_exact_zero"] and c["live_groups"] == 5 and
-               c["bit_equal_rerun"] for c in cases)
-    # the route each call took, as the shims count the planned one
-    assert [c["route"] for c in cases[:6]] == [
-        gmm.plan("dw" if call.endswith("dw") else "dx" if
-                 call.endswith("dx") else "fwd", 4 if call.endswith("dw")
-                 else 8, 16, k, n, torch.bfloat16).route
-        for call, k, n in GMM_TINY]
-    assert {c["route"] for c in cases[6:]} == {"f32"}
-    record, engine = chip_smoke.phase_train_moe("cpu", MOE_TINY, steps=20)
-    assert record["accumulate_steps"] == 2 and record["layers"] == 2
-    assert record["launches_per_step"]["grouped_matmul"] == 4 * 2 * 2
-    assert record["launches_per_step"]["grouped_matmul_dw"] == 2 * 2 * 2
-    assert record["mean_last5"] < record["mean_first5"]
-    assert record["mfu_top_k"] > record["mfu"] > 0
-    assert engine.module.model_config.dtype == "bfloat16"
-    assert engine.module.model_config.moe_dispatch == "sort_pallas"
-    parity = chip_smoke.phase_train_moe_parity("cpu", MOE_TINY)
-    for name in ("float32", "bfloat16"):
-        assert parity[name]["launches_kernels"] == {
-            "grouped_matmul": 8, "grouped_matmul_dw": 4}
-        assert parity[name]["launches_bmm"] == {
-            "grouped_matmul": 0, "grouped_matmul_dw": 0}
-    rows = chip_smoke.gmm_rows(cases, record)
-    assert [r["name"] for r in rows] == ["grouped_matmul",
-                                         "grouped_matmul_dw"]
-    for row in rows:
-        assert KERNEL_KEYS <= set(row)
-    assert rows[0]["launches"] == record["launches"]["grouped_matmul"]
-    phases = [d.get("phase") for d in _lines(capsys)]
-    for phase in ("kernel_gmm", "train_moe", "train_moe_parity"):
-        assert phase in phases
+from _chip_smoke_shims import (KERNEL_KEYS, ROOT, TINY, TRAIN_TINY,  # noqa: F401
+                               _lines, chip_smoke, shims)
+from _torch_parity import one_thread
+from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
+from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
 
 
 def test_moe_count_check_catches_a_recompute():
@@ -374,6 +124,26 @@ def test_normwise_check_sees_a_skipped_tile():
         wrong = chip_smoke._zero_tile(rounded)
         with pytest.raises(AssertionError, match="normwise"):
             chip_smoke._hold_normwise(wrong, ref, "test")
+
+
+def test_build_check_holds_the_wgmma_kernels():
+    """``build`` passes when every kernel of ``WGMMA_KERNELS`` is in the
+    SASS with ``HGMMA``, and fails when one is missing, holds no
+    ``HGMMA``, or, for the bf16 backward kernels, holds ``HMMA``."""
+    ok = {f"_ZN_{n}ILi64ELb1EEEv": {"HGMMA": 4, "HMMA": 0}
+          for n in chip_smoke.WGMMA_KERNELS}
+    chip_smoke.check_wgmma_sass(ok)
+    dq = next(k for k in ok if "flash_bwd_dq" in k)
+    dkv = next(k for k in ok if "flash_bwd_dkv" in k)
+    with pytest.raises(AssertionError, match="missing"):
+        chip_smoke.check_wgmma_sass({k: v for k, v in ok.items()
+                                     if k != dq})
+    with pytest.raises(AssertionError, match="no HGMMA"):
+        chip_smoke.check_wgmma_sass(dict(ok, **{dkv: {"HGMMA": 0,
+                                                      "HMMA": 0}}))
+    with pytest.raises(AssertionError, match="HMMA"):
+        chip_smoke.check_wgmma_sass(dict(ok, **{dq: {"HGMMA": 12,
+                                                     "HMMA": 8}}))
 
 
 def test_backward_bound():
