@@ -466,10 +466,11 @@ def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
 
 
 #: the wgmma kernels whose SASS ``build`` reads: kernels 8 and 9's route
-#: (a), and kernels 3 and 4 in bf16 (the only bf16 ``flash_bwd_*``
-#: kernels; the backward's fp32 ones are ``flash_bwd_*_f32``)
+#: (a), kernels 3 and 4 in bf16 (the only bf16 ``flash_bwd_*`` kernels;
+#: the backward's fp32 ones are ``flash_bwd_*_f32``) and kernel 7's
+#: wgmma route (forward and dx)
 WGMMA_KERNELS = ("gmm_wgmma_", "gmm_dw_wgmma_", "flash_bwd_dkv_wgmma",
-                 "flash_bwd_dq_wgmma")
+                 "flash_bwd_dq_wgmma", "qmm_wgmma_")
 
 
 def sass_tensor_ops(lib_path, names=WGMMA_KERNELS):
@@ -838,8 +839,10 @@ def phase_int8_decode_kernels(device="cuda"):
 QMM_SITES = (("qkv", 1024, 3072), ("out", 1024, 1024), ("fc1", 1024, 4096),
              ("fc2", 4096, 1024))
 #: M at those sites: a 16-slot decode tick, its verify window (16 x 5), a
-#: paged prefill chunk (two 128-token pages) and a contiguous prompt
+#: paged prefill chunk (two 128-token pages) and a contiguous prompt;
+#: bf16 also the gradient phase's forward (4 x 1024 tokens)
 QMM_ROWS = (16, 80, 256, 512)
+QMM_BF16_ROWS = QMM_ROWS + (4096,)
 #: kernel 7 against its plain version in fp32 on the same inputs, whose
 #: outputs have std 0.5: bf16 is the output's own rounding (half an ulp,
 #: 7.8e-3 in [2, 4)); fp32 the JAX kernel test's atol, for fp32 sums of
@@ -897,20 +900,71 @@ def _hold_tiles(out, ref, what):
     return reading, planted
 
 
+def _qmm_route_counts(qmm, dx) -> dict:
+    """Kernel 7's launch counts by route (``dx``: its dx route's)."""
+    return dict(getattr(qmm.quantized_matmul, "dx_launches_by_route" if dx
+                        else "launches_by_route", None) or {})
+
+
+def _qmm_held(qmm, torch, op, dtype, m, k, n, call, what, device):
+    """Launch one kernel 7 call twice (``call()``): the two outputs
+    bit-equal, the launch counted under the planned route. Returns
+    ``(output, route, plan)``."""
+    dx = op == "dx"
+    before = _qmm_route_counts(qmm, dx)
+    out = call()
+    route = _route_moved(before, _qmm_route_counts(qmm, dx))
+    again = call()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    planned = qmm.plan(op, m, k, n, dtype)
+    if device != "cpu" and route != planned.route:
+        raise AssertionError(f"{what}: launched on {route}, planned "
+                             f"{planned}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{what}: two launches on the same inputs "
+                             f"differ")
+    return out, route, planned
+
+
+def _qmm_routes_ms(qmm, torch, op, m, k, n, dtype, run, n_sets):
+    """``({route: device ms}, max active clusters)`` of kernel 7 at this
+    call: every route that takes it (bf16: ``stream`` up to
+    ``STREAM_MAX_M`` rows, ``wgmma``, and ``mma``, the first design,
+    which the planner sends nothing; fp32: ``f32``) through the
+    wrapper's private ``route`` argument, ``run(i, route)``, and the
+    clusters of the planned stream or wgmma kernel that fit on the card
+    at once."""
+    if dtype == torch.float32:
+        routes = ("f32",)
+    else:
+        routes = tuple(r for r in ("stream", "wgmma", "mma")
+                       if r != "stream" or m <= qmm.STREAM_MAX_M)
+    times = {r: time_ms(lambda i: run(i, r), n_sets)[0] for r in routes}
+    planned = qmm.plan(op, m, k, n, dtype)
+    clusters = None
+    if planned.route in ("stream", "wgmma"):
+        clusters = qmm.max_active_clusters(op, m, k, n, planned)
+    return times, clusters
+
+
 def qmm_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
     """Kernel 7 against its plain version (fp32, the same inputs) by max
     abs error and per 64 x 64 output tile normwise, with a planted fault;
-    timed with its plain version, the library yardstick (``F.linear``
-    on the weight dequantized to x's type beforehand: cuBLAS over twice
-    the int8 weight's bytes, four times in fp32) and, where this PyTorch
-    has it on the card, ``torch._weight_int8pack_mm``, over input sets
-    whose weights together exceed the L2 cache. Returns the record. On
-    the CPU (``device``) the wrapper runs its plain version and nothing
-    is timed."""
+    launched twice, bit-equal, on the planned route (read from the counts
+    by route); timed with its plain version, every other route that takes
+    the shape (the ``mma`` route is the first design), the library
+    yardstick (``F.linear`` on the weight dequantized to x's type
+    beforehand: cuBLAS over twice the int8 weight's bytes, four times in
+    fp32) and, where this PyTorch has it on the card,
+    ``torch._weight_int8pack_mm``, over input sets whose weights together
+    exceed the L2 cache (up to M 512; one set at the compute-bound M
+    4096). Returns the record. On the CPU (``device``) the wrapper runs
+    its plain version and nothing is timed."""
     import math
     import torch.nn.functional as F
     g = torch.Generator(device=device).manual_seed(seed)
-    n_sets = 1 if device == "cpu" else \
+    n_sets = 1 if device == "cpu" or m > 512 else \
         max(4, math.ceil(QMM_COLD_BYTES / (k * n)))
     # int8 uniform in [-127, 127] has std 73.6: these scales give
     # outputs of std ~0.5
@@ -924,23 +978,27 @@ def qmm_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
                                                 device=device))
         sets.append((x, w, scale))
     x, w, scale = sets[0]
-    out = qmm.quantized_matmul(x, w, scale)
-    if device != "cpu":
-        torch.cuda.synchronize()
-    ref = qmm.quantized_matmul_reference(x.float(), w, scale)
-    err = _max_err(out, ref)
     name = _dtype_name(dtype)
     tol = TOL_QMM[name]
     what = f"quantized_matmul ({name}, {site}, M={m}, K={k}, N={n})"
+    out, route, planned = _qmm_held(
+        qmm, torch, "fwd", dtype, m, k, n,
+        lambda: qmm.quantized_matmul(x, w, scale), what, device)
+    ref = qmm.quantized_matmul_reference(x.float(), w, scale)
+    err = _max_err(out, ref)
     if out.shape != (m, n) or out.dtype != dtype or \
             not torch.isfinite(out.float()).all() or err > tol:
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"max abs err {err:.3e} > {tol:.0e}")
     rel_l2, planted = _hold_tiles(out, ref, what)
     ms = call_ms = plain_ms = library_ms = int8pack_ms = None
+    routes_ms = clusters = None
     if device != "cpu":
         ms, call_ms = time_ms(lambda i: qmm.quantized_matmul(*sets[i]),
                               n_sets)
+        routes_ms, clusters = _qmm_routes_ms(
+            qmm, torch, "fwd", m, k, n, dtype,
+            lambda i, r: qmm._launch(*sets[i], route=r), n_sets)
         plain_ms, _ = time_ms(lambda i: qmm.quantized_matmul_reference(
             *sets[i]), n_sets, iters=5)
         dq = [(xs, (ws.float() * ss[:, None]).to(dtype))
@@ -955,8 +1013,12 @@ def qmm_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
             int8pack_ms = None   # not in this build for CUDA / this dtype
     bound_ms, bound_by = _qmm_bound(m, k, n, x.element_size())
     return {"dtype": name, "site": site, "M": m, "K": k, "N": n,
+            "route": route, "splits": planned.splits,
+            "max_active_clusters": clusters, "bit_equal_rerun": True,
             "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
             "rel_l2_planted": planted, "ms": ms, "call_ms": call_ms,
+            "ms_routes": routes_ms,
+            "ms_mma": (routes_ms or {}).get("mma"),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_computes": "F.linear on the weight dequantized to "
             "x's dtype (cuBLAS)", "int8pack_ms": int8pack_ms,
@@ -965,15 +1027,17 @@ def qmm_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
             "bound_by": bound_by, "weight_sets": n_sets}
 
 
-def phase_kernel_qmm(device="cuda", rows=QMM_ROWS, sites=QMM_SITES):
-    """Kernel 7 at the four 345M site shapes x ``rows``, bf16 and fp32;
-    returns the cases, led by the decode tick's (bf16, M 16, qkv)."""
+def phase_kernel_qmm(device="cuda", rows=QMM_ROWS, sites=QMM_SITES,
+                     bf16_rows=QMM_BF16_ROWS):
+    """Kernel 7 at the four 345M site shapes x ``bf16_rows`` in bf16 and
+    x ``rows`` in fp32; returns the cases, led by the decode tick's
+    (bf16, M 16, qkv)."""
     import torch
     from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
     cases = []
     seed = 800
     for dtype in (torch.bfloat16, torch.float32):
-        for m in rows:
+        for m in (bf16_rows if dtype == torch.bfloat16 else rows):
             for site, k, n in sites:
                 cases.append(qmm_case(qmm, torch, dtype, site, m, k, n, seed,
                                       device))
@@ -1066,20 +1130,38 @@ def _route_counts(gmm, kind) -> dict:
     return dict(getattr(wrapper, "launches_by_route", None) or {})
 
 
-def _route_taken(gmm, kind, before):
-    """The one route whose launch count moved since ``before``, or None
-    where none did (a stand-in that counts nothing)."""
-    now = _route_counts(gmm, kind)
+def _route_moved(before, now):
+    """The one route whose launch count moved from ``before`` to ``now``,
+    or None where none did (a stand-in that counts nothing)."""
     moved = [r for r in now if now[r] != before.get(r, 0)]
     if len(moved) > 1:
         raise AssertionError(f"one call moved the counts of {moved}")
     return moved[0] if moved else None
 
 
+def _route_taken(gmm, kind, before):
+    """The one kernel 8 / 9 route whose launch count moved since
+    ``before`` (:func:`_route_moved`)."""
+    return _route_moved(before, _route_counts(gmm, kind))
+
+
 def _gmm_routes(counts) -> dict:
-    """Kernels 8 and 9's launches by route out of :func:`read_counts`."""
+    """Kernels 7 (forward and dx), 8 and 9's launches by route out of
+    :func:`read_counts`."""
     return {name: counts[f"{name}_routes"]
-            for name in ("grouped_matmul", "grouped_matmul_dw")}
+            for name in ("grouped_matmul", "grouped_matmul_dw",
+                         "quantized_matmul", "quantized_matmul_dx")}
+
+
+def check_qmm_routes(counts, label, dx=False):
+    """Every kernel 7 launch (``dx``: of its dx route) of a path counted
+    under one route, and none on ``mma``: the planner sends the path's
+    bf16 shapes to ``stream`` or ``wgmma`` (fp32 runs ``f32``)."""
+    key = "quantized_matmul_dx" if dx else "quantized_matmul"
+    routes = counts[f"{key}_routes"]
+    if sum(routes.values()) != counts[key] or routes.get("mma", 0):
+        raise AssertionError(f"{label}: {key} launched {counts[key]} "
+                             f"times, by route {routes} (no mma allowed)")
 
 
 def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
@@ -1523,6 +1605,8 @@ def reset_counts():
     fa.flash_attention_backward.launches_dq = 0
     qmm.quantized_matmul.launches = 0
     qmm.quantized_matmul.dx_launches = 0
+    qmm.quantized_matmul.launches_by_route = dict.fromkeys(qmm.ROUTES, 0)
+    qmm.quantized_matmul.dx_launches_by_route = dict.fromkeys(qmm.ROUTES, 0)
     for wrapper in (gmm.grouped_matmul, gmm.grouped_matmul_dw):
         wrapper.launches = 0
         wrapper.launches_by_route = dict.fromkeys(gmm.ROUTES, 0)
@@ -1550,6 +1634,10 @@ def read_counts() -> dict:
               dict(gmm.grouped_matmul.launches_by_route),
               "grouped_matmul_dw_routes":
               dict(gmm.grouped_matmul_dw.launches_by_route),
+              "quantized_matmul_routes":
+              dict(qmm.quantized_matmul.launches_by_route),
+              "quantized_matmul_dx_routes":
+              dict(qmm.quantized_matmul.dx_launches_by_route),
               "counters": {k: v for k, v in sorted(counters.items())
                            if k.startswith(("attention/", "quant/", "moe/",
                                             "lora/", "serving/"))}}
@@ -2030,6 +2118,7 @@ def check_quant_counts(counts, layers, forwards, label):
             f"launched {counts['quantized_matmul']}, fallbacks "
             f"{c.get('quant/fallback/kernel_rejected', 0)}; expected "
             f"{want} (4 sites x {layers} layers x {forwards} forwards)")
+    check_qmm_routes(counts, label)
 
 
 def check_int8_counts(counts, summary, layers, label, kernel, cfg):
@@ -2240,8 +2329,13 @@ def phase_profile_paged(module, ticks=16, pool_pages=None, suffix=""):
         def run():
             for _ in range(ticks):
                 server.step()
+        reset_counts()
         windows.append(profile_window(torch, label, run, ticks))
+        counts = read_counts()
         windows[-1]["occupancy"] = server.occupancy
+        windows[-1]["launches_by_route"] = _gmm_routes(counts)
+        if cfg.quant_execution != "off":
+            check_qmm_routes(counts, label)
     emit({"phase": "profile_paged" + suffix, "slots": hl["slots"],
           "pool_pages": pool_pages or hl["pool_pages"], "windows": windows})
     return windows
@@ -3182,11 +3276,12 @@ def qmm_dx_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
     K]^T``): ``dx = gs [M, N] @ w [N, K]`` against its plain version
     (fp32, the same inputs) by max abs error and per 64 x 64 output tile
     normwise, with a planted fault; the call counts one dx launch and no
-    forward launch. Timed with its plain version and the library
-    yardstick ``torch.matmul(gs, w.to(dtype))`` (the weight widened
-    beforehand), over input sets whose weights exceed the L2 cache at
-    small M. On the CPU the wrapper runs its plain version and nothing
-    is timed."""
+    forward launch, on the planned route, and a second launch is
+    bit-equal. Timed with its plain version, every other route that
+    takes the shape (``mma`` the first design) and the library yardstick
+    ``torch.matmul(gs, w.to(dtype))`` (the weight widened beforehand),
+    over input sets whose weights exceed the L2 cache at small M. On the
+    CPU the wrapper runs its plain version and nothing is timed."""
     import math
     g = torch.Generator(device=device).manual_seed(seed)
     n_sets = 1 if device == "cpu" or m > 256 else \
@@ -3201,29 +3296,32 @@ def qmm_dx_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
                           dtype=torch.int8)
         sets.append((gs, w))
     gs, w = sets[0]
-    before = (qmm.quantized_matmul.launches, qmm.quantized_matmul.dx_launches)
-    out = qmm.quantized_matmul_dx(gs, w)
-    if device != "cpu":
-        torch.cuda.synchronize()
-        if (qmm.quantized_matmul.launches,
-                qmm.quantized_matmul.dx_launches) != (before[0],
-                                                      before[1] + 1):
-            raise AssertionError("quantized_matmul_dx: the call did not "
-                                 "count one dx launch")
-    ref = qmm.quantized_matmul_dx_reference(gs.float(), w)
-    err = _max_err(out, ref)
     name = _dtype_name(dtype)
     tol = TOL_QMM[name]
     what = f"quantized_matmul_dx ({name}, {site}, M={m}, K={k}, N={n})"
+    before = (qmm.quantized_matmul.launches, qmm.quantized_matmul.dx_launches)
+    out, route, planned = _qmm_held(
+        qmm, torch, "dx", dtype, m, k, n,
+        lambda: qmm.quantized_matmul_dx(gs, w), what, device)
+    if device != "cpu" and (qmm.quantized_matmul.launches,
+                            qmm.quantized_matmul.dx_launches) != \
+            (before[0], before[1] + 2):
+        raise AssertionError("quantized_matmul_dx: a call did not count "
+                             "one dx launch and no forward launch")
+    ref = qmm.quantized_matmul_dx_reference(gs.float(), w)
+    err = _max_err(out, ref)
     if out.shape != (m, k) or out.dtype != dtype or \
             not torch.isfinite(out.float()).all() or err > tol:
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"max abs err {err:.3e} > {tol:.0e}")
     rel_l2, planted = _hold_tiles(out, ref, what)
-    ms = call_ms = plain_ms = library_ms = None
+    ms = call_ms = plain_ms = library_ms = routes_ms = clusters = None
     if device != "cpu":
         ms, call_ms = time_ms(lambda i: qmm.quantized_matmul_dx(*sets[i]),
                               n_sets)
+        routes_ms, clusters = _qmm_routes_ms(
+            qmm, torch, "dx", m, k, n, dtype,
+            lambda i, r: qmm.quantized_matmul_dx(*sets[i], route=r), n_sets)
         plain_ms, _ = time_ms(lambda i: qmm.quantized_matmul_dx_reference(
             *sets[i]), n_sets, iters=5)
         wide = [(a, b.to(dtype)) for a, b in sets]
@@ -3231,8 +3329,12 @@ def qmm_dx_case(qmm, torch, dtype, site, m, k, n, seed, device="cuda"):
         del wide
     bound_ms, bound_by = _qmm_dx_bound(m, k, n, gs.element_size())
     return {"dtype": name, "site": site, "M": m, "K": k, "N": n,
+            "route": route, "splits": planned.splits,
+            "max_active_clusters": clusters, "bit_equal_rerun": True,
             "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
             "rel_l2_planted": planted, "ms": ms, "call_ms": call_ms,
+            "ms_routes": routes_ms,
+            "ms_mma": (routes_ms or {}).get("mma"),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_computes": "torch.matmul(gs, w.to(dtype)) on the "
             "weight widened beforehand (cuBLAS)", "bound_ms": bound_ms,
@@ -3716,6 +3818,8 @@ def phase_grad_int8_lora(device="cuda", overrides=(), batch=2, seq=256,
         if got != want:
             raise AssertionError(f"grad_int8_lora: {name} launched {got}, "
                                  f"expected {want}")
+        for dx in (False, True):
+            check_qmm_routes(counts, f"grad_int8_lora {name}", dx)
         cpu = build_model(dataclasses.replace(cfg, dtype="float32"),
                           torch.device("cpu"), state_dict={
                               k: (v.float() if v.is_floating_point()
@@ -3730,7 +3834,8 @@ def phase_grad_int8_lora(device="cuda", overrides=(), batch=2, seq=256,
         record[name] = {"loss": loss, "loss_cpu": ref_loss,
                         "loss_rel_diff": loss_rel, "worst_leaf": leaf,
                         "worst_leaf_rel_diff": leaf_rel, "leaves": len(ref),
-                        "launches": got}
+                        "launches": got,
+                        "launches_by_route": _gmm_routes(counts)}
         if not loss == loss or loss_rel > tol["loss_rel"] or \
                 leaf_rel > tol["grad_leaf_rel"]:
             emit(record)
@@ -3761,6 +3866,8 @@ def phase_grad_int8_lora(device="cuda", overrides=(), batch=2, seq=256,
     if got != want:
         raise AssertionError(f"grad_int8_lora: full-depth pass launched "
                              f"{got}, expected {want}")
+    for dx in (False, True):
+        check_qmm_routes(counts, "grad_int8_lora full", dx)
     finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
     if not loss == loss or not finite:
         raise AssertionError(f"grad_int8_lora: 24-layer loss {loss}, "
@@ -3858,6 +3965,10 @@ def lora_rows(dx_cases, grad) -> list:
         "_quantized_matmul_bwd)",
         "launches": launches,
         "launches_by_path": {"grad_int8_lora": launches},
+        "kernel_route": head.get("route"),
+        "launches_by_route": grad["full"].get(
+            "launches_by_route", {}).get("quantized_matmul_dx", {}),
+        "ms_mma": head.get("ms_mma"),
         "max_abs_err": err, "max_err": err,
         "tol": {c["dtype"]: c["tol"] for c in dx_cases},
         "max_rel_l2": max(c["rel_l2"] for c in dx_cases),
@@ -3870,8 +3981,10 @@ def lora_rows(dx_cases, grad) -> list:
         "library_computes": head["library_computes"],
         "shape": {k: head[k] for k in ("dtype", "site", "M", "K", "N")},
         "by_shape": {f"{c['dtype']}_{c['site']}_M{c['M']}": {
-            k: c[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
-                              "bound_ms", "bound_by")} for c in dx_cases},
+            k: c.get(k) for k in ("route", "splits", "ms", "call_ms",
+                                  "ms_routes", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")}
+            for c in dx_cases},
         "cases": len(dx_cases)}]
 
 
@@ -4039,11 +4152,18 @@ def int8_rows(dec8, window8, qmm_cases, runs) -> list:
     head = qmm_cases[0]
     err = max(c["max_abs_err"] for c in qmm_cases)
     qlaunch = launched("quantized_matmul", runs)
+    by_route = {}
+    for run in runs.values():
+        for r, n in run.get("launches_by_route", {}).get(
+                "quantized_matmul", {}).items():
+            by_route[r] = by_route.get(r, 0) + n
     rows = [{
         "name": "quantized_matmul", "route": "cuda",
         "source": "paddlefleetx_tpu_torch/csrc/quantized_matmul.cu",
         "replaces": "paddlefleetx_tpu/ops/pallas/quantized_matmul.py:44",
         "launches": sum(qlaunch.values()), "launches_by_path": qlaunch,
+        "kernel_route": head.get("route"), "launches_by_route": by_route,
+        "ms_mma": head.get("ms_mma"),
         "max_abs_err": err, "max_err": err,
         "tol": {c["dtype"]: c["tol"] for c in qmm_cases},
         "max_rel_l2": max(c["rel_l2"] for c in qmm_cases),
@@ -4057,8 +4177,9 @@ def int8_rows(dec8, window8, qmm_cases, runs) -> list:
         "int8pack_ms": head["int8pack_ms"],
         "shape": {k: head[k] for k in ("dtype", "site", "M", "K", "N")},
         "by_shape": {f"{c['dtype']}_{c['site']}_M{c['M']}": {
-            k: c[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
-                              "int8pack_ms", "bound_ms", "bound_by")}
+            k: c.get(k) for k in ("route", "splits", "ms", "call_ms",
+                                  "ms_routes", "plain_ms", "library_ms",
+                                  "int8pack_ms", "bound_ms", "bound_by")}
             for c in qmm_cases},
         "cases": len(qmm_cases)}]
     head = dec8[0]

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (csrc/grouped_matmul.cu, kernels 8 and 9; csrc/flash_bwd.cu, kernels 3
-// and 4): mbarriers, TMA loads and stores (bulk tensor copies counted on
-// an mbarrier), the async-proxy fence, the wgmma shared-memory descriptor
+// and 4; csrc/quantized_matmul.cu, kernel 7): mbarriers, TMA loads and
+// stores (bulk tensor copies counted on an mbarrier), the async-proxy
+// fence, the wgmma shared-memory descriptor
 // of a 128-byte-swizzled bf16 tile, wgmma fences, commits and waits, the
 // m64nNk16 bf16 products, and cuTensorMapEncodeTiled looked up through
 // the CUDA runtime's entry-point query, so that a library using TMA
@@ -69,6 +70,32 @@ static __device__ __forceinline__ void mbar_wait(uint64_t* bar,
         : "r"(a), "r"(parity)
         : "memory");
   }
+}
+
+// One TMA box of a 2-D tensor map into shared memory at `dst`, counted
+// on `bar` (elements past the tensor's edges arrive as zeros).
+static __device__ __forceinline__ void tma_load_2d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c0,
+                                                   int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// One TMA box from shared memory at `src` to a 2-D tensor map (elements
+// past the tensor's edges are not written), in this thread's bulk group.
+static __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                                    const void* src, int c0,
+                                                    int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // One TMA box of a 3-D tensor map into shared memory at `dst`, counted
@@ -371,6 +398,12 @@ static __device__ __forceinline__ void fence_acc(float* d) {
 // 128-byte swizzle lays them out) holds row r's byte b.
 static __device__ __forceinline__ int swz(int r, int b) {
   return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+// The same for a box of 64-byte rows under TMA's 64-byte swizzle (512-byte
+// aligned atoms): row r's byte b.
+static __device__ __forceinline__ int swz64(int r, int b) {
+  return r * 64 + ((((b >> 4) ^ (r >> 1)) & 3) << 4) + (b & 15);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

@@ -55,8 +55,10 @@ SIGNATURES = {
                                _I, _I, _F, _I, _P],
     "pfx_flash_decode_paged_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       _I, _I, _I, _I, _I, _F, _I, _P],
-    "pfx_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "pfx_quantized_matmul_dx": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # ... is_bf16, then the route and its cluster size
+    "pfx_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pfx_quantized_matmul_dx": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pfx_quantized_matmul_clusters": [_I, _I, _I, _I, _I, _P],
     # ... is_bf16, then the route, its tile (rows, columns) and the
     # split route's cluster size
     "pfx_grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL,

@@ -93,13 +93,19 @@ def shims(monkeypatch):
     qmm_plain = qmm.quantized_matmul_reference
     dx_plain = qmm.quantized_matmul_dx_reference
 
-    def qmm_shim(*args, **kwargs):
-        qmm.quantized_matmul.launches += 1
-        return qmm_plain(*args, **kwargs)
+    def qmm_shim(x, w, scale):
+        f = qmm.quantized_matmul
+        f.launches += 1
+        f.launches_by_route[qmm.plan("fwd", x.shape[0], x.shape[1],
+                                     w.shape[0], x.dtype).route] += 1
+        return qmm_plain(x, w, scale)
 
-    def dx_shim(*args, **kwargs):
-        qmm.quantized_matmul.dx_launches += 1
-        return dx_plain(*args, **kwargs)
+    def dx_shim(gs, w):
+        f = qmm.quantized_matmul
+        f.dx_launches += 1
+        f.dx_launches_by_route[qmm.plan("dx", gs.shape[0], w.shape[1],
+                                        w.shape[0], gs.dtype).route] += 1
+        return dx_plain(gs, w)
     monkeypatch.setattr(qmm, "quantized_matmul_reference", qmm_shim)
     monkeypatch.setattr(qmm, "quantized_matmul_dx_reference", dx_shim)
     for name, wrapper, planner in (

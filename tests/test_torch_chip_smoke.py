@@ -388,6 +388,9 @@ def test_int8_serving_phases_run_at_tiny_size(shims, capsys, monkeypatch):
         assert run["launches"][kernel] == run["decode_ticks"] * 2 > 0
         assert run["launches"]["quantized_matmul"] == \
             run["counters"]["quant/matmul"] == 4 * 2 * run["forwards"]
+        routes = run["launches_by_route"]["quantized_matmul"]
+        assert sum(routes.values()) == run["launches"]["quantized_matmul"]
+        assert routes["mma"] == 0
     # the bf16 pool's bytes hold 9 int8 pages for 5 bf16 ones at the tiny
     # width (head_dim 64: 68 bytes a key and head against 128)
     assert runs["paged"]["pool_pages"] == 9
@@ -423,7 +426,9 @@ def test_int8_serving_phases_run_at_tiny_size(shims, capsys, monkeypatch):
     assert rows["quantized_matmul"]["replaces"].endswith(
         "quantized_matmul.py:44")
     assert rows["quantized_matmul"]["launches"] == sum(
-        r["launches"]["quantized_matmul"] for r in runs.values())
+        r["launches"]["quantized_matmul"] for r in runs.values()) == \
+        sum(rows["quantized_matmul"]["launches_by_route"].values())
+    assert rows["quantized_matmul"]["launches_by_route"]["mma"] == 0
     for arm, kernel in kernels.items():
         assert rows[kernel]["launches"] == runs[arm]["launches"][kernel]
     assert rows["flash_decode_paged_int8"]["int8_branch"].endswith(
@@ -459,6 +464,9 @@ def test_int8_kernel_checks_hold_what_they_say(monkeypatch):
                                384, 3, device="cpu")
     assert case["max_abs_err"] <= case["tol"] and case["ms"] is None
     assert case["rel_l2_planted"] == 1.0
+    assert case["bit_equal_rerun"] and case["ms_mma"] is None
+    assert case["splits"] == qmm.plan("fwd", 80, 256, 384,
+                                      torch.bfloat16).splits
     real = qmm.quantized_matmul
 
     def skips_a_tile(x, w, scale):
@@ -529,6 +537,13 @@ def test_lora_kernel_phases_run_at_tiny_size(shims, capsys):
     dx = chip_smoke.phase_kernel_qmm_dx("cpu", rows=(16, 40),
                                         sites=QMM_TINY)
     assert len(dx) == 16 and dx[0]["M"] == 40
+    for c in dx:
+        planned = qmm.plan("dx", c["M"], c["K"], c["N"],
+                           getattr(torch, c["dtype"]))
+        assert (c["route"], c["splits"]) == tuple(planned)
+        assert c["bit_equal_rerun"] and c["route"] == (
+            "f32" if c["dtype"] == "float32" else
+            "stream" if c["M"] <= qmm.STREAM_MAX_M else "wgmma")
     assert all(c["rel_l2"] <= chip_smoke.TOL_REL_L2[c["dtype"]] <
                c["rel_l2_planted"] for c in dx)
     calls = chip_smoke.lora_calls(QMM_TINY)
@@ -568,6 +583,7 @@ def test_lora_kernel_phases_run_at_tiny_size(shims, capsys):
     assert "qkv_C16" in rows["grouped_matmul"]["lora_delta"]
     (row,) = chip_smoke.lora_rows(dx, grad)
     assert KERNEL_KEYS <= set(row) and row["launches"] == 96
+    assert row["kernel_route"] == dx[0]["route"] == "wgmma"
     assert row["replaces"].endswith("quantized_matmul.py:129")
     phases = [d.get("phase") for d in _lines(capsys)]
     for phase in ("kernel_qmm_dx", "kernel_gmm_lora",
@@ -624,6 +640,9 @@ def test_lora_training_phases_run_at_tiny_size(shims, capsys):
     assert grad["float32"]["launches"] == {
         k: 2 * v for k, v in chip_smoke.GRAD_LORA_PER_LAYER.items()}
     assert grad["full"]["launches"]["quantized_matmul_dx"] == 4 * 2
+    for name in ("quantized_matmul", "quantized_matmul_dx"):
+        routes = grad["full"]["launches_by_route"][name]
+        assert sum(routes.values()) == 4 * 2 and routes["mma"] == 0
     assert grad["float32"]["worst_leaf_rel_diff"] <= 1e-4
     record = chip_smoke.phase_finetune_lora("cpu", TRAIN_TINY)
     assert record["base_bit_equal"] and record["lora_b_max_abs"] == 0.0
@@ -631,6 +650,26 @@ def test_lora_training_phases_run_at_tiny_size(shims, capsys):
     assert record["trained_params"] == record["state_entries"] == 16
     phases = [d.get("phase") for d in _lines(capsys)]
     assert "grad_int8_lora" in phases and "finetune_lora" in phases
+
+
+def test_qmm_route_check_refuses_mma():
+    """A path's kernel 7 launches pass the route check when each is
+    counted under ``stream``, ``wgmma`` or ``f32``; one on ``mma`` (the
+    first design, planned for no shape) or one counted under no route
+    fails it, for the forward and the dx route alike."""
+    routes = dict.fromkeys(qmm.ROUTES, 0)
+    ok = {"quantized_matmul": 10, "quantized_matmul_dx": 4,
+          "quantized_matmul_routes": dict(routes, stream=6, wgmma=4),
+          "quantized_matmul_dx_routes": dict(routes, f32=4)}
+    chip_smoke.check_qmm_routes(ok, "t")
+    chip_smoke.check_qmm_routes(ok, "t", dx=True)
+    for bad, dx in ((dict(ok, quantized_matmul_routes=dict(
+            routes, stream=6, mma=4)), False),
+                    (dict(ok, quantized_matmul=11), False),
+                    (dict(ok, quantized_matmul_dx_routes=dict(
+                        routes, wgmma=3, mma=1)), True)):
+        with pytest.raises(AssertionError, match="no mma"):
+            chip_smoke.check_qmm_routes(bad, "t", dx)
 
 
 def test_lora_count_check_catches_a_fallback():
