@@ -20,8 +20,12 @@ against the dense PyTorch path token for token, and runs the
 ``generate`` entry point. Then training: kernel 1 with in-kernel
 dropout and the backward kernels 3 and 4 against their plain versions
 (at the 345M recipe's shape, with a bias, at s = 4096, and in bf16 at a
-ragged s = 1000 and at head_dim 128; the build fails unless their bf16
-kernels run wgmma, not mma.sync), the 345M
+ragged s = 1000 and at head_dim 128; the build fails unless the bf16
+attention kernels, kernel 1's planned route and kernels 3 and 4, run
+wgmma, not mma.sync; every kernel-1 case is launched twice and bit-equal,
+read for its route and timed beside the first design's ``mma`` route and
+the other ``wgmma`` tile, and ``serve``, ``train`` and ``train_moe`` fail
+if a kernel-1 launch took ``mma``), the 345M
 pretraining recipe as written (bf16, dropout, ``save_dots``, chunked
 loss, batch 8 x 1024) for 30 steps through ``cli.train_main`` with the
 counts reset just before and read just after, one profiled training
@@ -266,9 +270,40 @@ def _fwd_bound(b, h, sq, skv, d, itemsize, causal, has_bias):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _fwd_route_taken(fa, before) -> str:
+    """The one kernel-1 route whose launch count moved since ``before``
+    (a copy of ``flash_attention.launches_by_route``)."""
+    now = fa.flash_attention.launches_by_route
+    moved = [r for r in now if now[r] != before.get(r, 0)]
+    if len(moved) != 1 or now[moved[0]] != before.get(moved[0], 0) + 1:
+        raise AssertionError(f"flash_attention: one launch moved the route "
+                             f"counts {before} -> {now}")
+    return moved[0]
+
+
+def _fwd_other_routes(fa, route, block_n, d, launch, n_sets):
+    """``(mma_ms, {other_block_n, other_tile_ms})``: the device times of
+    a bf16 call on the first design's ``mma`` route and, at head_dim 64,
+    on the ``wgmma`` tile the plan did not pick, each through
+    ``launch(i, route=, block_n=)`` (the wrapper's private arguments);
+    None and {} for fp32."""
+    if route == "f32":
+        return None, {}
+    mma_ms, _ = time_ms(lambda i: launch(i, route="mma"), n_sets)
+    if d != 64:
+        return mma_ms, {}
+    other = fa.WGMMA_BLOCK_N[0] + fa.WGMMA_BLOCK_N[1] - block_n
+    other_ms, _ = time_ms(lambda i: launch(i, route="wgmma", block_n=other),
+                          n_sets)
+    return mma_ms, {"other_block_n": other, "other_tile_ms": other_ms}
+
+
 def fwd_case(fa, torch, dtype, b, h, s, d, with_bias, seed, n_sets=4):
     """Kernel 1 against its plain version (and SDPA, timed only) on one
-    shape; returns the case record."""
+    shape, launched twice and bit-equal; the route it took from the
+    counts by route, and the first design's ``mma`` route and the other
+    ``wgmma`` tile timed beside it (:func:`_fwd_other_routes`); returns
+    the case record."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     sets = []
@@ -287,8 +322,14 @@ def fwd_case(fa, torch, dtype, b, h, s, d, with_bias, seed, n_sets=4):
                 -1e9, 0.0).to(torch.float32)[:, None, None, :]
         sets.append((q, k, v, bias))
     q, k, v, bias = sets[0]
+    before = dict(fa.flash_attention.launches_by_route)
     out, lse = fa.flash_attention(q, k, v, causal=True, bias=bias)
+    route = _fwd_route_taken(fa, before)
+    again = fa.flash_attention(q, k, v, causal=True, bias=bias)
     torch.cuda.synchronize()
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"flash_attention: a second launch differs "
+                             f"({dtype}, b={b}, s={s}, bias={with_bias})")
     ref_o, ref_lse = fa.flash_attention_reference(q.float(), k.float(),
                                                   v.float(), True, bias)
     err = max(_max_err(out, ref_o), _max_err(lse, ref_lse))
@@ -307,6 +348,11 @@ def fwd_case(fa, torch, dtype, b, h, s, d, with_bias, seed, n_sets=4):
         *sets[i][:3], True, sets[i][3]), n_sets)
     plain_ms, _ = time_ms(lambda i: fa.flash_attention_reference(
         *sets[i][:3], True, sets[i][3]), n_sets, iters=5)
+    block_n = fa.plan(b, h, s, s, d, dtype, False).block_n
+    mma_ms, other = _fwd_other_routes(fa, route, block_n, d, lambda i, **r:
+                                      fa._launch_forward(*sets[i][:3], True,
+                                                         sets[i][3], 0.0,
+                                                         None, **r), n_sets)
     tsets = []
     for q, k, v, bias in sets:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -322,9 +368,12 @@ def fwd_case(fa, torch, dtype, b, h, s, d, with_bias, seed, n_sets=4):
     bound_ms, bound_by = _fwd_bound(b, h, s, s, d, q.element_size(), True,
                                     with_bias)
     return {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "s": s,
-            "d": d, "bias": with_bias, "max_abs_err": err, "tol": tol,
+            "d": d, "bias": with_bias, "route": route,
+            "block_n": block_n, **other, "max_abs_err": err, "tol": tol,
             "rel_l2": rel_l2, "rel_l2_planted": planted,
+            "relaunch_bit_equal": True,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "mma_ms": mma_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
@@ -466,11 +515,15 @@ def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
 
 
 #: the wgmma kernels whose SASS ``build`` reads: kernels 8 and 9's route
-#: (a), kernels 3 and 4 in bf16 (the only bf16 ``flash_bwd_*`` kernels;
-#: the backward's fp32 ones are ``flash_bwd_*_f32``) and kernel 7's
+#: (a), kernel 1's and kernels 3 and 4's bf16 kernels (the backward's
+#: fp32 ones are ``flash_bwd_*_f32``; kernel 1's other routes are
+#: ``flash_fwd_mma_kernel`` and ``flash_fwd_kernel``) and kernel 7's
 #: wgmma route (forward and dx)
-WGMMA_KERNELS = ("gmm_wgmma_", "gmm_dw_wgmma_", "flash_bwd_dkv_wgmma",
-                 "flash_bwd_dq_wgmma", "qmm_wgmma_")
+WGMMA_KERNELS = ("gmm_wgmma_", "gmm_dw_wgmma_", "flash_fwd_wgmma",
+                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma", "qmm_wgmma_")
+#: the bf16 attention kernels, whose SASS must hold no ``HMMA``
+#: (mma.sync)
+NO_HMMA_KERNELS = ("flash_fwd_wgmma", "flash_bwd_")
 
 
 def sass_tensor_ops(lib_path, names=WGMMA_KERNELS):
@@ -500,17 +553,17 @@ def sass_tensor_ops(lib_path, names=WGMMA_KERNELS):
 
 def check_wgmma_sass(sass) -> None:
     """Raise unless every kernel of ``WGMMA_KERNELS`` is in ``sass`` and
-    holds ``HGMMA``, and the bf16 backward kernels (3 and 4) hold no
-    ``HMMA`` (mma.sync)."""
+    holds ``HGMMA``, and the bf16 attention kernels (kernel 1's wgmma
+    route, kernels 3 and 4) hold no ``HMMA`` (mma.sync)."""
     missing = [n for n in WGMMA_KERNELS
                if not any(n in fn for fn in sass)]
     if missing or not all(v["HGMMA"] > 0 for v in sass.values()):
         raise AssertionError(f"build: a wgmma kernel is missing {missing} "
                              f"or its SASS holds no HGMMA: {sass}")
     mma = {fn: v for fn, v in sass.items()
-           if "flash_bwd_" in fn and v["HMMA"] > 0}
+           if any(n in fn for n in NO_HMMA_KERNELS) and v["HMMA"] > 0}
     if mma:
-        raise AssertionError(f"build: bf16 backward kernels run mma.sync "
+        raise AssertionError(f"build: bf16 attention kernels run mma.sync "
                              f"(HMMA): {mma}")
 
 
@@ -1153,6 +1206,18 @@ def _gmm_routes(counts) -> dict:
                          "quantized_matmul", "quantized_matmul_dx")}
 
 
+def check_fwd_routes(counts, label):
+    """Every kernel 1 launch of a path counted under one route, and none
+    on ``mma``: the planner sends every bf16 call to ``wgmma`` (fp32 runs
+    ``f32``)."""
+    routes = counts["flash_attention_routes"]
+    if sum(routes.values()) != counts["flash_attention"] or \
+            routes.get("mma", 0):
+        raise AssertionError(f"{label}: flash_attention launched "
+                             f"{counts['flash_attention']} times, by route "
+                             f"{routes} (no mma allowed)")
+
+
 def check_qmm_routes(counts, label, dx=False):
     """Every kernel 7 launch (``dx``: of its dx route) of a path counted
     under one route, and none on ``mma``: the planner sends the path's
@@ -1346,14 +1411,22 @@ def _causal_mask(torch, s, bias, dtype):
 def fwd_dropout_case(fa, philox, torch, dtype, b, h, s, d, with_bias, seed,
                      rate=0.1, n_sets=2):
     """Kernel 1 with in-kernel dropout against its plain version on the
-    same Philox bits; the kept fraction over the causal entries; rate 0
-    bit-identical to the launch without dropout. Returns the record."""
+    same Philox bits, launched twice and bit-equal; the kept fraction over
+    the causal entries; rate 0 bit-identical to the launch without
+    dropout; the route taken and the ``mma`` route timed beside it (bf16).
+    Returns the record."""
     import torch.nn.functional as F
     sets = _qkv_sets(torch, dtype, b, h, s, d, with_bias, seed, n_sets)
     dseed = 1000 + seed
     q, k, v, _, bias = sets[0]
+    before = dict(fa.flash_attention.launches_by_route)
     out, lse = fa.flash_attention(q, k, v, True, bias, rate, dseed)
+    route = _fwd_route_taken(fa, before)
+    again = fa.flash_attention(q, k, v, True, bias, rate, dseed)
     torch.cuda.synchronize()
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"flash_attention with dropout: a second "
+                             f"launch differs ({dtype}, bias={with_bias})")
     ref_o, ref_lse = fa.flash_attention_reference(
         q.float(), k.float(), v.float(), True, bias, rate, dseed)
     err = max(_max_err(out, ref_o), _max_err(lse, ref_lse))
@@ -1381,6 +1454,12 @@ def fwd_dropout_case(fa, philox, torch, dtype, b, h, s, d, with_bias, seed,
         *sets[i][:3], True, sets[i][4], rate, dseed + i), n_sets)
     plain_ms, _ = time_ms(lambda i: fa.flash_attention_reference(
         *sets[i][:3], True, sets[i][4], rate, dseed + i), n_sets, iters=3)
+    block_n = fa.plan(b, h, s, s, d, dtype, True).block_n
+    mma_ms, other = _fwd_other_routes(fa, route, block_n, d, lambda i, **r:
+                                      fa._launch_forward(*sets[i][:3], True,
+                                                         sets[i][4], rate,
+                                                         dseed + i, **r),
+                                      n_sets)
     tsets = [tuple(t.transpose(1, 2).contiguous() for t in st[:3]) +
              (None if st[4] is None else _causal_mask(torch, s, st[4], dtype),)
              for st in sets]
@@ -1390,10 +1469,13 @@ def fwd_dropout_case(fa, philox, torch, dtype, b, h, s, d, with_bias, seed,
     bound_ms, bound_by = _fwd_bound(b, h, s, s, d, q.element_size(), True,
                                     with_bias)
     return {"dtype": _dtype_name(dtype), "b": b, "h": h, "s": s, "d": d,
-            "bias": with_bias, "dropout": rate, "max_abs_err": err,
+            "bias": with_bias, "dropout": rate, "route": route,
+            "block_n": block_n, **other, "max_abs_err": err,
             "tol": tol, "rel_l2": rel_l2, "rel_l2_planted": planted,
             "kept_fraction": kept, "rate0_bit_identical": True,
+            "relaunch_bit_equal": True,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "mma_ms": mma_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
@@ -1598,6 +1680,7 @@ def reset_counts():
     from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
     from paddlefleetx_tpu_torch.ops.cuda import quantized_matmul as qmm
     fa.flash_attention.launches = 0
+    fa.flash_attention.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
     for name in DECODE_KERNELS:
         getattr(fa, name).launches = 0
         getattr(fa, name).launches_int8 = 0
@@ -1638,6 +1721,8 @@ def read_counts() -> dict:
               dict(qmm.quantized_matmul.launches_by_route),
               "quantized_matmul_dx_routes":
               dict(qmm.quantized_matmul.dx_launches_by_route),
+              "flash_attention_routes":
+              dict(fa.flash_attention.launches_by_route),
               "counters": {k: v for k, v in sorted(counters.items())
                            if k.startswith(("attention/", "quant/", "moe/",
                                             "lora/", "serving/"))}}
@@ -1710,6 +1795,7 @@ def phase_serve(device="cuda", overrides=(), requests=16, slots=8,
             raise AssertionError(f"serve: request {c.request_id} emitted "
                                  f"{c.tokens}")
     check_serve_counts(counts, summary, cfg.num_layers, "serve")
+    check_fwd_routes(counts, "serve")
     generated = sum(len(c.tokens) for c in completions)
     record = {
         "phase": "serve", "model": "GPT-345M", "dtype": cfg.dtype,
@@ -1728,6 +1814,8 @@ def phase_serve(device="cuda", overrides=(), requests=16, slots=8,
         "admitted": summary["admitted"], "launches": {
             "flash_attention": counts["flash_attention"],
             "flash_decode": counts["flash_decode"]},
+        "launches_by_route": {
+            "flash_attention": counts["flash_attention_routes"]},
         "counters": counts["counters"]}
     if device != "cpu":
         record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2731,6 +2819,7 @@ def phase_train(device="cuda", overrides=(), steps=30):
         if counts[name] != want:
             raise AssertionError(f"train: {name} launched {counts[name]} "
                                  f"times in {steps} steps, expected {want}")
+    check_fwd_routes(counts, "train")
     # the dispatch counter counts calls of the dispatch, and a recompute
     # replays the block's Python (the kernel's saved output is reused)
     if c.get("attention/flash_dropout", 0) < want or \
@@ -2765,6 +2854,8 @@ def phase_train(device="cuda", overrides=(), steps=30):
             "flash_attention", "flash_bwd_dkv", "flash_bwd_dq")},
         "launches": {k: counts[k] for k in (
             "flash_attention", "flash_bwd_dkv", "flash_bwd_dq")},
+        "launches_by_route": {
+            "flash_attention": counts["flash_attention_routes"]},
         "counters": c}
     if device != "cpu":
         record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3086,6 +3177,7 @@ def phase_train_moe(device="cuda", overrides=(), steps=16):
     acc, layers = engine.accumulate_steps, mcfg.num_layers
     check_moe_counts(counts, steps, acc, layers, "train_moe",
                      route=MOE_ROUTE if device != "cpu" else None)
+    check_fwd_routes(counts, "train_moe")
     seq = cfg.Data.Train.dataset.max_seq_len
     micro = cfg.Global.micro_batch_size
     # the trained model's router loss and cross-entropy on a seeded
@@ -3134,7 +3226,8 @@ def phase_train_moe(device="cuda", overrides=(), steps=16):
         "launches": {k: counts[k] for k in (
             "grouped_matmul", "grouped_matmul_dw", "flash_attention",
             "flash_bwd_dkv", "flash_bwd_dq")},
-        "launches_by_route": _gmm_routes(counts),
+        "launches_by_route": {**_gmm_routes(counts), "flash_attention":
+                              counts["flash_attention_routes"]},
         "counters": counts["counters"]}
     if device != "cpu":
         record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4216,16 +4309,25 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
                  serve_paged=None, spec=None, int8=None, moe=None,
                  lora=None) -> dict:
     """The per-kernel record: each kernel's main-path shape (kernel 1:
-    the serving case first, the training case beside it; kernels 3 and
-    4: the recipe's bf16 case with dropout), the worst error over all
-    its cases (max abs and normwise, with the least planted-fault
-    reading), and its launches on the main paths (serve and train;
-    kernels 3 and 4 also train_moe), each counted from zero just before
-    its path ran. Kernels 3 and 4
+    the serving case first, the training case beside it, each with its
+    route and the ``mma`` route's time; kernels 3 and 4: the recipe's
+    bf16 case with dropout), the worst error over all its cases (max abs
+    and normwise, with the least planted-fault reading), and its
+    launches on the main paths (serve and train; kernels 1, 3 and 4 also
+    train_moe; kernel 1 also by route), each counted from zero just
+    before its path ran. Kernels 3 and 4
     also carry the pair's time and the bound of the one TPU function
     they replace together (5 products, ``bound_ms_both``)."""
-    k1_launch = {"serve": serve["launches"]["flash_attention"],
-                 "train": train["launches"]["flash_attention"]}
+    k1_paths = {"serve": serve, "train": train}
+    if moe is not None:
+        k1_paths["train_moe"] = moe[1]
+    k1_launch = {p: rec["launches"]["flash_attention"]
+                 for p, rec in k1_paths.items()}
+    k1_routes = {}
+    for rec in k1_paths.values():
+        for r, n in rec.get("launches_by_route", {}).get(
+                "flash_attention", {}).items():
+            k1_routes[r] = k1_routes.get(r, 0) + n
     rows = []
     for name, cases, source, replaces, launches in (
             ("flash_attention", fwd + fwd_drop, "paddlefleetx_tpu_torch/"
@@ -4255,11 +4357,15 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
                       if k in ("dtype", "b", "h", "s", "S", "d", "offsets",
                                "bias", "shared_offset_bias")},
             "cases": len(cases)})
+    rows[0].update(kernel_route=fwd[0].get("route"),
+                   block_n=fwd[0].get("block_n"), mma_ms=fwd[0].get("mma_ms"),
+                   launches_by_route=k1_routes)
     if fwd_drop:
         t = fwd_drop[0]
-        rows[0]["train_shape"] = {k: t[k] for k in (
-            "dtype", "b", "h", "s", "d", "bias", "dropout", "ms", "call_ms",
-            "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        rows[0]["train_shape"] = {k: t.get(k) for k in (
+            "dtype", "b", "h", "s", "d", "bias", "dropout", "route",
+            "block_n", "ms", "call_ms", "plain_ms", "mma_ms", "library_ms",
+            "bound_ms", "bound_by")}
     for name, which, grads, replaces in (
             ("flash_bwd_dkv", "dkv", ("dk", "dv"),
              "paddlefleetx_tpu/ops/pallas/flash_attention.py:419"),

@@ -102,9 +102,7 @@
 // reduced over the four threads by shuffles. The other side's rows are
 // staged 32 at a time in shared memory.
 
-#include "common.cuh"
-#include "hopper.cuh"
-#include "philox.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -117,21 +115,12 @@ using pfx::fence_async_smem;
 using pfx::mbar_arrive;
 using pfx::mbar_expect_tx;
 using pfx::mbar_init;
-using pfx::pack_bf16;
-using pfx::swz;
 using pfx::tma_load_4d;
 using pfx::tma_store_4d;
-using pfx::wg_desc;
 using pfx::wgmma_commit;
 using pfx::wgmma_fence;
 using pfx::wgmma_wait;
-
-constexpr int kTile = 64;          // rows of a TMA box, a ring tile, a block
-constexpr int kBox = kTile * 128;  // bytes of a box: 64 x 64 bf16, swizzled
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-constexpr int kThreads = 128;   // one warpgroup a block
+using namespace pfx::attn;
 
 // The shape of kernel 3 (kDkv) or kernel 4 at head_dim D. BLOCKS share
 // an SM: 3 (ptxas then allows 168 registers a thread), but 2 for kernel
@@ -151,102 +140,6 @@ struct Shape {
   static constexpr int VECS = kDkv ? STAGES * 3 * kTile * 4 : 0;
   static constexpr int BYTES = 1024 + OWN + RING + VECS + (1 + STAGES) * 8;
 };
-
-// mbar_wait that traps after ~10 s (2e10 cycles) instead of spinning
-// forever, so that a pipeline fault fails its launch rather than hanging
-// the card; the clock is read only once a first poll has failed.
-static __device__ __forceinline__ void bar_wait(uint64_t* bar,
-                                                uint32_t parity) {
-  if (pfx::mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!pfx::mbar_try_wait(bar, parity))
-    if (clock64() - start > 20000000000LL) __trap();
-}
-
-// 2^x on the MUFU unit (ex2.approx.ftz: within 2 ulp; results below the
-// normal range flush to 0).
-static __device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-static __device__ __forceinline__ void fence_u32(uint32_t (*a)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-}
-
-// The A fragments of the four k16 steps over a 64-column accumulator
-// (columns 16 kk .. 16 kk + 15 are accumulator blocks 2 kk and 2 kk + 1).
-static __device__ __forceinline__ void acc_to_a(const float* d,
-                                                uint32_t (*a)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-}
-
-// S (+)= A B^T over the head dim: two K-major operands of 64 rows in
-// boxes (the row tiles of q, k, v or dO), m64n64, D / 16 k16 steps.
-template <int D>
-static __device__ __forceinline__ void product_rows(float* d,
-                                                    const unsigned char* a,
-                                                    const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = (kk / 4) * kBox + (kk % 4) * 32;
-    pfx::wgmma_m64n64_ss<0, 0>(d, wg_desc(a + off, 16, 1024),
-                               wg_desc(b + off, 16, 1024), kk > 0);
-  }
-}
-
-// acc += A B over the 64 rows of a ring or own tile: A (64 x 64, from
-// registers) times the tile read MN-major (its 64 rows the reduction,
-// its D columns the output's), m64nD, 4 k16 steps.
-template <int D>
-static __device__ __forceinline__ void product_acc(float* acc,
-                                                   uint32_t (*a)[4],
-                                                   const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = wg_desc(b + kk * 2048, kBox, 1024);
-    if constexpr (D == 64)
-      pfx::wgmma_m64n64_rs<1>(acc, a[kk], db);
-    else
-      pfx::wgmma_m64n128_rs<1>(acc, a[kk], db);
-  }
-}
-
-// Four keep bits of one Philox group, bit i for key (col & ~3) + i.
-static __device__ __forceinline__ uint32_t keep_nibble(
-    const pfx::Dropout& drop, int bh, int row, int col) {
-  const uint4 w = drop.group(bh, row, col);
-  return static_cast<uint32_t>(drop.keep(w.x)) |
-         static_cast<uint32_t>(drop.keep(w.y)) << 1 |
-         static_cast<uint32_t>(drop.keep(w.z)) << 2 |
-         static_cast<uint32_t>(drop.keep(w.w)) << 3;
-}
-
-// The epilogue's staging: the warpgroup's 64 rows of `acc` (times
-// `scale`) as bf16 into the swizzled boxes at `st`, as TMA stores them.
-template <int D>
-static __device__ __forceinline__ void store_rows(const float* acc,
-                                                  float scale,
-                                                  unsigned char* st,
-                                                  int tid) {
-  const int r = (tid / 32) * 16 + (tid % 32) / 4, t = tid % 4;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      *reinterpret_cast<uint32_t*>(st + (j / 8) * kBox +
-                                   swz(r + 8 * hh, 16 * (j % 8) + 4 * t)) =
-          pack_bf16(acc[4 * j + 2 * hh] * scale,
-                    acc[4 * j + 2 * hh + 1] * scale);
-}
 
 // Kernel 3, bf16: dK and dV of the 64 keys k0 .. k0 + 63.
 template <int D, bool kDrop>
@@ -460,8 +353,9 @@ __global__ void __launch_bounds__(kThreads, Shape<D, true>::BLOCKS)
 
   // every product is done: the K and V boxes take dK and dV
   if (k0 < skv) {
-    store_rows<D>(dk, sm_scale, ks, tid);
-    store_rows<D>(dv, 1.f, vs, tid);
+    const float dk_scale[2] = {sm_scale, sm_scale}, dv_scale[2] = {1.f, 1.f};
+    store_rows<D>(dk, dk_scale, ks, tid);
+    store_rows<D>(dv, dv_scale, vs, tid);
     fence_async_smem();
     __syncthreads();
     if (tid == 0) {
@@ -552,9 +446,6 @@ __global__ void __launch_bounds__(kThreads, Shape<D, false>::BLOCKS)
   }
   const float scale_log2 = sm_scale * kLog2e;
   const float nl_r[2] = {-lse_r[0] * kLog2e, -lse_r[1] * kLog2e};
-  // dropout: the lanes t and t ^ 1 hold two keys each of the same key
-  // quads; this lane draws the 8 groups (hh, j) with j % 2 == t % 2
-  const int par = t & 1;
 
   float dq[D / 2];
 #pragma unroll
@@ -579,18 +470,8 @@ __global__ void __launch_bounds__(kThreads, Shape<D, false>::BLOCKS)
     product_rows<D>(dp, dos, vs);
     wgmma_commit();
     // while they run: the keep bits
-    uint32_t mine = 0, other = 0;
-    if constexpr (kDrop) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int j = 2 * (n & 3) + par;
-        mine |= keep_nibble(drop, bh, row_r[n >> 2],
-                            n0 + 8 * j + 4 * (t >> 1)) << (4 * n);
-      }
-      other = __shfl_xor_sync(kFullMask, mine, 1);
-      mine >>= 2 * par;
-      other >>= 2 * par;
-    }
+    uint32_t even = 0, odd = 0;
+    if constexpr (kDrop) keep_words(drop, bh, row_r, n0, t, &even, &odd);
     // a tile wholly inside the causal triangle and the edges, without a
     // bias, needs no mask
     const bool inner = bias == nullptr && (!causal || n0 < q0) &&
@@ -615,19 +496,13 @@ __global__ void __launch_bounds__(kThreads, Shape<D, false>::BLOCKS)
     }
     wgmma_wait<0>();
     fence_acc<32>(dp);
-    // s becomes dS; element e = 4 j + 2 hh + u holds key 2 t + u of quad
-    // (hh, j): bit 4 (4 hh + j / 2) + 2 (t % 2) + u of the word of the
-    // lane that drew it
+    // s becomes dS
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
-      const int j = e >> 2, hh = (e >> 1) & 1, u = e & 1;
       float d = dp[e];
-      if constexpr (kDrop) {
-        const uint32_t w = (j & 1) == par ? mine : other;
-        const bool kp = (w >> (4 * (4 * hh + (j >> 1)) + u)) & 1u;
-        d = kp ? d * drop.scale : 0.f;
-      }
-      s[e] = s[e] * (d - delta_r[hh]);
+      if constexpr (kDrop)
+        d = keep_bit(even, odd, e) ? d * drop.scale : 0.f;
+      s[e] = s[e] * (d - delta_r[(e >> 1) & 1]);
     }
     // dQ += dS K (K read MN-major); then the stage is free
     uint32_t sa[4][4];
@@ -643,7 +518,8 @@ __global__ void __launch_bounds__(kThreads, Shape<D, false>::BLOCKS)
 
   // every product is done: the Q boxes take dQ
   if (q0 < sq) {
-    store_rows<D>(dq, sm_scale, qs, tid);
+    const float dq_scale[2] = {sm_scale, sm_scale};
+    store_rows<D>(dq, dq_scale, qs, tid);
     fence_async_smem();
     __syncthreads();
     if (tid == 0) {
@@ -922,20 +798,6 @@ struct Args {
   int causal;
   pfx::Dropout drop;
 };
-
-// The 4-D tensor map of a [b, s, h, d] bf16 tensor, dims {d, h, s, b},
-// boxes of 64 d values x 1 head x 64 rows (one swizzled 8 KB tile).
-bool map_bshd(CUtensorMap* map, const void* p, int b, int s, int h, int d) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(h) * d * 2,
-                                 static_cast<cuuint64_t>(s) * h * d * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(kTile), 1};
-  return pfx::make_tensor_map(map, p, 4, dims, strides, box);
-}
 
 template <int D, bool kDrop>
 int dkv_bf16(const Args& a, void* dk, void* dv, cudaStream_t st) {

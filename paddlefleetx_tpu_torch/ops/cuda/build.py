@@ -43,8 +43,9 @@ _F = ctypes.c_float
 _DROP = [_I, _U, _F, _ULL]
 #: the C signatures of csrc/*.cu (every pointer and the stream as void*)
 SIGNATURES = {
+    # ... the dropout arguments, then the route and its key tile
     "pfx_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _LL, _LL, _LL, _F, _I, _I, *_DROP, _P],
+                      _LL, _LL, _LL, _F, _I, _I, *_DROP, _I, _I, _P],
     # the decode kernels take q, k, v, then the int8 cache's K and V
     # scales (null for a cache of q's type)
     "pfx_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,

@@ -7,7 +7,13 @@
   optional additive bias and optional in-kernel dropout (a Philox mask
   on absolute coordinates, ``philox.py``), returning O and the per-row
   logsumexp. Serving runs it as prefill; training runs it with its
-  gradient, which launches kernels 3 and 4.
+  gradient, which launches kernels 3 and 4. Each call takes one of
+  three routes, which :func:`plan` picks from the shape: ``wgmma``
+  (bf16: Hopper's warpgroup products fed by a TMA ring of K / V tiles
+  of 64 or 128 keys), ``f32`` (fp32's CUDA-core kernel), or ``mma``
+  (the first bf16 design on ``mma.sync``, kept and planned for no call;
+  ``chip_smoke.py`` times it beside the planned route through the
+  private ``route`` argument of ``_launch_forward``).
 - :func:`flash_attention_backward` launches ``csrc/flash_bwd.cu``:
   kernel 3 (``flash_bwd_dkv``: dK, dV) and kernel 4 (``flash_bwd_dq``:
   dQ), the port of the TPU backward family (``_bwd_combined_kernel``,
@@ -47,7 +53,8 @@ runs the plain PyTorch version from this module instead
 :func:`flash_decode_reference`, :func:`flash_decode_paged_reference`);
 on CUDA tensors it launches the kernel or raises — there is no fallback
 from a launch to the plain version. Each kernel counts its launches in
-a plain integer: ``flash_attention.launches`` (kernel 1),
+a plain integer: ``flash_attention.launches`` (kernel 1; by route in
+``flash_attention.launches_by_route``),
 ``flash_attention_backward.launches_dkv`` (kernel 3),
 ``flash_attention_backward.launches_dq`` (kernel 4),
 ``flash_decode.launches`` (kernel 2, both one-query entry points),
@@ -74,7 +81,7 @@ decode kernels' 16-byte loads want.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -229,11 +236,89 @@ def _check_kernel_inputs(name, q, k, v, quantized: bool = False) -> None:
                          f"{_HEAD_DIMS}")
 
 
-def _launch_forward(q, k, v, causal, bias, dropout_rate, seed):
-    """Launch kernel 1 and count the launch."""
+#: kernel 1's routes (``csrc/flash_fwd.cu``): ``wgmma`` (bf16, planned),
+#: ``mma`` (bf16, the first design's ``mma.sync`` kernel, planned for no
+#: call) and ``f32`` (fp32's CUDA-core kernel)
+ROUTES = ("wgmma", "mma", "f32")
+#: each route's code in the C entry point (fp32 runs with code 0)
+_ROUTE_CODE = {"mma": 0, "f32": 0, "wgmma": 1}
+#: the key tile each route takes: ``mma`` 64 and ``f32`` 32 keys; the
+#: ``wgmma`` route 64, or 128 at head_dim 64 (:func:`plan`)
+_BLOCK_N = {"mma": 64, "f32": 32}
+#: the ``wgmma`` route's key tiles at head_dim 64; the 128-key tile's
+#: shortest key length, and the most 64-row blocks (two an SM of the
+#: H100's 132) it is planned for
+WGMMA_BLOCK_N = (64, 128)
+WIDE_MIN_SKV = 512
+WIDE_MAX_BLOCKS = 2 * 132
+
+
+class Plan(NamedTuple):
+    """A kernel-1 call's route and the keys of its K / V tiles."""
+    route: str
+    block_n: int
+
+
+def plan(b: int, h: int, sq: int, skv: int, d: int, dtype: torch.dtype,
+         dropout: bool) -> Plan:
+    """The route of one kernel-1 call, from its shape alone (pure
+    Python: the CPU tests hold it).
+
+    Args:
+        b, h, sq, skv, d (int): batch, heads, query and key lengths,
+            head_dim.
+        dtype (torch.dtype): q's type.
+        dropout (bool): whether the call drops probabilities (on the
+            H100 the same tile won with and without; ``PERF.md`` §6).
+
+    Returns:
+        ``f32`` for fp32; for bf16 ``wgmma``: 128-key tiles at head_dim
+        64 where the grid of 64-row blocks fits two an SM
+        (``WIDE_MAX_BLOCKS``) and the walk is long (``skv >=
+        WIDE_MIN_SKV``): a serving prefill, one prompt, whose blocks run
+        nearly alone on their SMs, so halving the walk's steps (each
+        with its own waits, product latency and softmax) pays; else
+        64-key tiles, which keep three blocks an SM to hide that latency
+        and waste less of a short walk's last tile (d 128's O
+        accumulator leaves no registers for the wider tile). Never
+        ``mma``. ``chip_smoke.py`` times the tile the plan did not pick
+        beside the planned one (``PERF.md`` §6).
+    """
+    if dtype != torch.bfloat16:
+        return Plan("f32", _BLOCK_N["f32"])
+    blocks = b * h * -(-sq // 64)
+    wide = d == 64 and skv >= WIDE_MIN_SKV and blocks <= WIDE_MAX_BLOCKS
+    return Plan("wgmma", WGMMA_BLOCK_N[int(wide)])
+
+
+def _route(b, h, sq, skv, d, dtype, dropout, route=None,
+           block_n=None) -> Plan:
+    """The planned route, or the one the caller named, with its own tile
+    or ``block_n`` (private arguments: ``chip_smoke.py`` and the card
+    test time and hold the ``mma`` kernel, which took every bf16 call
+    before the ``wgmma`` route, and the ``wgmma`` tile the plan did not
+    pick, beside the planned one). The kernel refuses a route or tile
+    that cannot take the shape."""
+    planned = plan(b, h, sq, skv, d, dtype, dropout)
+    route = planned.route if route is None else route
+    if route not in ROUTES or (route == "f32") != (dtype == torch.float32):
+        raise ValueError(f"flash_attention: route {route!r} for a {dtype} "
+                         f"call")
+    if block_n is None:
+        block_n = planned.block_n if route == planned.route else \
+            _BLOCK_N.get(route, WGMMA_BLOCK_N[0])
+    return Plan(route, int(block_n))
+
+
+def _launch_forward(q, k, v, causal, bias, dropout_rate, seed, route=None,
+                    block_n=None):
+    """Launch kernel 1 by the planned route (or ``route``, with its tile
+    or ``block_n``) and count the launch."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     _check_kernel_inputs("flash_attention", q, k, v)
+    p = _route(b, h, sq, skv, d, q.dtype, dropout_rate > 0.0, route,
+               block_n)
     sb = sh = sqs = 0
     if bias is not None:
         bias = _canon_bias(bias, b, h, sq, skv).contiguous()
@@ -249,11 +334,13 @@ def _launch_forward(q, k, v, causal, bias, dropout_rate, seed):
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), lse.data_ptr(), b, h, sq, skv, d, sb, sh, sqs,
             d ** -0.5, int(causal), int(q.dtype == torch.bfloat16),
-            *_dropout_args(dropout_rate, seed), stream)
+            *_dropout_args(dropout_rate, seed), _ROUTE_CODE[p.route],
+            p.block_n, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention: {p.route} kernel launch "
+                           f"failed with cudaError {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[p.route] += 1
     return out, lse
 
 
@@ -314,6 +401,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_backward_reference(

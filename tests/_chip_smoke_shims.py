@@ -65,9 +65,14 @@ def shims(monkeypatch):
     fwd_plain = fa.flash_attention_reference
     bwd_plain = fa.flash_attention_backward_reference
 
-    def fwd_shim(*args, **kwargs):
-        fa.flash_attention.launches += 1
-        return fwd_plain(*args, **kwargs)
+    def fwd_shim(q, k, v, *args, **kwargs):
+        f = fa.flash_attention
+        f.launches += 1
+        rate = args[2] if len(args) > 2 else kwargs.get("dropout_rate", 0.0)
+        f.launches_by_route[fa.plan(q.shape[0], q.shape[2], q.shape[1],
+                                    k.shape[1], q.shape[3], q.dtype,
+                                    rate > 0.0).route] += 1
+        return fwd_plain(q, k, v, *args, **kwargs)
 
     def bwd_shim(*args, **kwargs):
         fa.flash_attention_backward.launches_dkv += 1
