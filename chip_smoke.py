@@ -418,6 +418,25 @@ def _widened(t, scale, dtype):
     return fa.dequantize_cache(t, scale).to(dtype)
 
 
+def _hold_decode_launch(wrapper, before, route, out, launch, what, device):
+    """Raise unless ``out``, the decode ``wrapper``'s launch (its counts
+    by route were ``before``), went by the planned ``route`` and a second
+    ``launch()`` on the same inputs gives the same output. On the CPU the
+    wrappers run their plain versions and count nothing."""
+    if device == "cpu":
+        return
+    import torch
+    again = launch()
+    now = wrapper.launches_by_route
+    moved = {r: now[r] - before.get(r, 0) for r in now}
+    if moved != {r: 2 * (r == route) for r in now}:
+        raise AssertionError(f"{what}: two launches counted by route as "
+                             f"{moved}, planned {route}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{what}: a second launch gave another "
+                             f"output")
+
+
 def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
                 n_sets=4, int8=False, device="cuda"):
     """Kernel 2 against its plain version (and SDPA, timed only): the
@@ -449,9 +468,11 @@ def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
                 -1e9, 0.0).to(torch.float32)[:, None, None, :]
         sets.append((q, k, v, bias, ks, vs))
 
-    def kernel(i):
+    def kernel(i, route=None):
         q, k, v, bias, ks, vs = sets[i]
         sc = {"k_scale": ks, "v_scale": vs} if int8 else {}
+        if route is not None:
+            sc["route"] = route
         if shared_bias:
             return fa.flash_decode(q, k, v, shared, bias, **sc)
         return fa.flash_decode_ragged(q, k, v, off_t, **sc)
@@ -465,21 +486,28 @@ def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
         return fa.flash_decode_reference(
             q, k, v, shared if shared_bias else off_t, bias, ks, vs)
 
+    plan = fa.plan_decode(b, 1, h, S, d, dtype, int8, False, 0)
+    before = dict(fa.flash_decode.launches_by_route) \
+        if device != "cpu" else None
     out = kernel(0)
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     sync()
+    what = f"flash_decode ({dtype}, int8 {int8}, shared_bias={shared_bias})"
+    _hold_decode_launch(fa.flash_decode, before, plan.route, out,
+                        lambda: kernel(0), what, device)
     ref = plain(0, upcast=True)
     err = _max_err(out, ref)
     tol = TOL[str(dtype).split(".")[-1]]
-    what = f"flash_decode ({dtype}, int8 {int8}, shared_bias={shared_bias})"
     if not torch.isfinite(out.float()).all() or err > tol:
         raise AssertionError(
             f"{what} disagrees with its plain version: max abs err "
             f"{err:.3e} > {tol:.0e} (offsets={offsets})")
     rel_l2, planted = _hold_normwise(out, ref, what)
-    ms = call_ms = plain_ms = library_ms = None
+    ms = call_ms = plain_ms = library_ms = simt_ms = None
     if device != "cpu":
         ms, call_ms = time_ms(kernel, n_sets)
+        simt_ms = ms if plan.route == "simt" else time_ms(
+            lambda i: kernel(i, route="simt"), n_sets)[0]
         plain_ms, _ = time_ms(plain, n_sets, iters=5)
         pos = torch.arange(S, device=device)
         offs = torch.full((b,), shared, device=device) if shared_bias \
@@ -503,10 +531,12 @@ def decode_case(fa, torch, dtype, offsets, h, S, d, shared_bias, seed,
                                        2 * (d + 4) if int8 else None)
     rec = {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "S": S,
            "d": d, "offsets": offsets, "shared_offset_bias": shared_bias,
+           "route": plan.route, "cluster": plan.cluster,
            "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
            "rel_l2_planted": planted, "ms": ms, "call_ms": call_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "simt_ms": simt_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
     if int8:
         rec.update(kv_cache="int8", library_computes="SDPA over the int8 "
                    "cache widened to the query dtype beforehand (the "
@@ -524,6 +554,9 @@ WGMMA_KERNELS = ("gmm_wgmma_", "gmm_dw_wgmma_", "flash_fwd_wgmma",
 #: the bf16 attention kernels, whose SASS must hold no ``HMMA``
 #: (mma.sync)
 NO_HMMA_KERNELS = ("flash_fwd_wgmma", "flash_bwd_")
+#: the mma.sync kernels whose SASS ``build`` reads and must hold ``HMMA``:
+#: the decode family's ``mma`` route (kernels 2, 5, 6a and 6b)
+HMMA_KERNELS = ("decode_kernel_mma",)
 
 
 def sass_tensor_ops(lib_path, names=WGMMA_KERNELS):
@@ -551,6 +584,17 @@ def sass_tensor_ops(lib_path, names=WGMMA_KERNELS):
     return found
 
 
+def check_hmma_sass(sass) -> None:
+    """Raise unless every kernel of ``HMMA_KERNELS`` is in ``sass`` and
+    each of its instances holds ``HMMA`` (the tensor cores)."""
+    found = {fn: v for fn, v in sass.items()
+             if any(n in fn for n in HMMA_KERNELS)}
+    missing = [n for n in HMMA_KERNELS if not any(n in fn for fn in found)]
+    if missing or not all(v["HMMA"] > 0 for v in found.values()):
+        raise AssertionError(f"build: an mma.sync kernel is missing "
+                             f"{missing} or its SASS holds no HMMA: {found}")
+
+
 def check_wgmma_sass(sass) -> None:
     """Raise unless every kernel of ``WGMMA_KERNELS`` is in ``sass`` and
     holds ``HGMMA``, and the bf16 attention kernels (kernel 1's wgmma
@@ -569,21 +613,29 @@ def check_wgmma_sass(sass) -> None:
 
 def phase_build():
     """Build the kernels from csrc/ (timed), save the compiler's report,
-    and count the wgmma kernels' tensor-core instructions in the SASS."""
+    and count the wgmma and mma.sync kernels' tensor-core instructions in
+    the SASS (HGMMA in each wgmma kernel, HMMA in the decode family's
+    ``mma`` route)."""
     from paddlefleetx_tpu_torch.ops.cuda import build
     t0 = time.time()
     build.load()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as f:
         f.write(str(build.last_build.get("log", "")))
-    sass = sass_tensor_ops(str(build.last_build.get("path")))
+    sass = sass_tensor_ops(str(build.last_build.get("path")),
+                           WGMMA_KERNELS + HMMA_KERNELS)
+    wgmma = hmma = None
     if sass is not None:
-        check_wgmma_sass(sass)
+        wgmma = {fn: v for fn, v in sass.items()
+                 if any(n in fn for n in WGMMA_KERNELS)}
+        hmma = {fn: v for fn, v in sass.items() if fn not in wgmma}
+        check_wgmma_sass(wgmma)
+        check_hmma_sass(hmma)
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "nvcc_seconds": build.last_build.get("seconds"),
           "library": os.path.relpath(str(build.last_build.get("path")),
                                      ROOT),
-          "wgmma_sass": sass})
+          "wgmma_sass": wgmma, "hmma_sass": hmma})
 
 
 def phase_kernels():
@@ -721,14 +773,15 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
     def scales(ks, vs):
         return {"k_scale": ks, "v_scale": vs} if int8 else {}
 
-    def kernel(i):
+    wrapper = {"paged": fa.flash_decode_paged,
+               "paged_verify": fa.flash_decode_paged_verify,
+               "verify": fa.flash_decode_verify}[kind]
+
+    def kernel(i, route=None):
         q, k, v, ks, vs = sets[i]
-        if kind == "paged":
-            return fa.flash_decode_paged(q, k, v, off, pt, **scales(ks, vs))
-        if kind == "paged_verify":
-            return fa.flash_decode_paged_verify(q, k, v, off, pt,
-                                                **scales(ks, vs))
-        return fa.flash_decode_verify(q, k, v, off, **scales(ks, vs))
+        table = (pt,) if paged else ()
+        named = {} if route is None else {"route": route}
+        return wrapper(q, k, v, off, *table, **named, **scales(ks, vs))
 
     def contiguous(i):
         """The cache (gathered for a pool): ``(k, v, k_scale, v_scale)``."""
@@ -749,13 +802,18 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
             return fa.flash_decode_paged_reference(q, k, v, off, pt, ks, vs)
         return fa.flash_decode_reference(q, k, v, off, None, ks, vs)
 
+    plan = fa.plan_decode(b, window, h, cap, d, dtype, int8, paged,
+                          page if paged else 0)
+    before = dict(wrapper.launches_by_route) if device != "cpu" else None
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     out = kernel(0)
     sync()
+    what = f"{kind} ({dtype}, window {window}, int8 {int8})"
+    _hold_decode_launch(wrapper, before, plan.route, out, lambda: kernel(0),
+                        what, device)
     ref = plain(0, upcast=True)
     err = _max_err(out, ref)
     tol = TOL[_dtype_name(dtype)]
-    what = f"{kind} ({dtype}, window {window}, int8 {int8})"
     if not torch.isfinite(out.float()).all() or err > tol:
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"max abs err {err:.3e} > {tol:.0e}")
@@ -791,9 +849,11 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
     if exact_err != 0.0:
         raise AssertionError(f"{what} differs from {exact_vs} by "
                              f"{exact_err:.3e}; the design makes them equal")
-    ms = call_ms = plain_ms = library_ms = counterpart_ms = None
+    ms = call_ms = plain_ms = library_ms = counterpart_ms = simt_ms = None
     if device != "cpu":
         ms, call_ms = time_ms(kernel, n_sets)
+        simt_ms = ms if plan.route == "simt" else time_ms(
+            lambda i: kernel(i, route="simt"), n_sets)[0]
         plain_ms, _ = time_ms(plain, n_sets, iters=5)
         # the counterpart's time, the paged ones' gather not counted:
         # kernel 2 or 5 on the same live lengths, or W launches of
@@ -819,12 +879,14 @@ def decode_window_case(fa, torch, kind, dtype, window, seed,
     return {"kind": kind, "dtype": _dtype_name(dtype), "b": b, "h": h,
             "kv_cache": "int8" if int8 else "query dtype",
             "d": d, "window": window, "capacity": cap,
+            "route": plan.route, "chunk": plan.chunk,
+            "cluster": plan.cluster,
             "page": page if paged else None, "pool_pages":
             pages if paged else None, "offsets": list(offsets),
             "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
             "rel_l2_planted": planted, "exact_vs": exact_vs,
             "exact_max_abs_err": exact_err, "ms": ms, "call_ms": call_ms,
-            "counterpart_ms": counterpart_ms,
+            "simt_ms": simt_ms, "counterpart_ms": counterpart_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_computes": "SDPA, boolean mask, on the contiguous "
             "cache (the gather" + (" and the int8 widening" if int8
@@ -1198,12 +1260,13 @@ def _route_taken(gmm, kind, before):
     return _route_moved(before, _route_counts(gmm, kind))
 
 
-def _gmm_routes(counts) -> dict:
-    """Kernels 7 (forward and dx), 8 and 9's launches by route out of
-    :func:`read_counts`."""
+def routes_by_kernel(counts) -> dict:
+    """Kernels 2, 5, 6a and 6b, 7 (forward and dx), 8 and 9's launches by
+    route out of :func:`read_counts`."""
     return {name: counts[f"{name}_routes"]
             for name in ("grouped_matmul", "grouped_matmul_dw",
-                         "quantized_matmul", "quantized_matmul_dx")}
+                         "quantized_matmul", "quantized_matmul_dx",
+                         *DECODE_KERNELS)}
 
 
 def check_fwd_routes(counts, label):
@@ -1684,6 +1747,8 @@ def reset_counts():
     for name in DECODE_KERNELS:
         getattr(fa, name).launches = 0
         getattr(fa, name).launches_int8 = 0
+        getattr(fa, name).launches_by_route = dict.fromkeys(fa.DECODE_ROUTES,
+                                                            0)
     fa.flash_attention_backward.launches_dkv = 0
     fa.flash_attention_backward.launches_dq = 0
     qmm.quantized_matmul.launches = 0
@@ -1729,7 +1794,22 @@ def read_counts() -> dict:
     for name in DECODE_KERNELS:
         counts[name] = getattr(fa, name).launches
         counts[name + "_int8"] = getattr(fa, name).launches_int8
+        counts[name + "_routes"] = dict(getattr(fa, name).launches_by_route)
     return counts
+
+
+def check_decode_routes(counts, label, dtype):
+    """Every launch of kernels 2, 5, 6a and 6b on a path, bf16 and int8
+    caches alike, counted under the route its query type plans: ``mma``
+    for a bf16 model, with none on ``simt``; ``simt`` for fp32."""
+    want = "mma" if dtype == "bfloat16" else "simt"
+    for name in DECODE_KERNELS:
+        routes = counts[name + "_routes"]
+        n = counts[name] + counts[name + "_int8"]
+        if routes.get(want, 0) != n or sum(routes.values()) != n:
+            raise AssertionError(f"{label}: {name} launched {n} times, by "
+                                 f"route {routes} (all {want} for "
+                                 f"{dtype})")
 
 
 def seeded_prompts(n, lo, hi, vocab, seed):
@@ -1796,6 +1876,7 @@ def phase_serve(device="cuda", overrides=(), requests=16, slots=8,
                                  f"{c.tokens}")
     check_serve_counts(counts, summary, cfg.num_layers, "serve")
     check_fwd_routes(counts, "serve")
+    check_decode_routes(counts, "serve", cfg.dtype)
     generated = sum(len(c.tokens) for c in completions)
     record = {
         "phase": "serve", "model": "GPT-345M", "dtype": cfg.dtype,
@@ -1815,7 +1896,8 @@ def phase_serve(device="cuda", overrides=(), requests=16, slots=8,
             "flash_attention": counts["flash_attention"],
             "flash_decode": counts["flash_decode"]},
         "launches_by_route": {
-            "flash_attention": counts["flash_attention_routes"]},
+            "flash_attention": counts["flash_attention_routes"],
+            **routes_by_kernel(counts)},
         "counters": counts["counters"]}
     if device != "cpu":
         record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2298,6 +2380,7 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
     if int8:
         kernel += "_int8"
     check_paged_counts(counts, summary, cfg.num_layers, label, kernel)
+    check_decode_routes(counts, label, cfg.dtype)
     if int8 or cfg.quant_execution != "off":
         check_int8_counts(counts, summary, cfg.num_layers, label, kernel,
                           cfg)
@@ -2329,7 +2412,7 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
                                        counts["quantized_matmul"],
                                        "grouped_matmul":
                                        counts["grouped_matmul"]},
-        "launches_by_route": _gmm_routes(counts),
+        "launches_by_route": routes_by_kernel(counts),
         "forwards": server_forwards(summary),
         "counters": counts["counters"]}
     for key in ("prefill_chunks", "prefix_hits", "prompt_hits", "cow_splits",
@@ -2421,7 +2504,7 @@ def phase_profile_paged(module, ticks=16, pool_pages=None, suffix=""):
         windows.append(profile_window(torch, label, run, ticks))
         counts = read_counts()
         windows[-1]["occupancy"] = server.occupancy
-        windows[-1]["launches_by_route"] = _gmm_routes(counts)
+        windows[-1]["launches_by_route"] = routes_by_kernel(counts)
         if cfg.quant_execution != "off":
             check_qmm_routes(counts, label)
     emit({"phase": "profile_paged" + suffix, "slots": hl["slots"],
@@ -3226,7 +3309,7 @@ def phase_train_moe(device="cuda", overrides=(), steps=16):
         "launches": {k: counts[k] for k in (
             "grouped_matmul", "grouped_matmul_dw", "flash_attention",
             "flash_bwd_dkv", "flash_bwd_dq")},
-        "launches_by_route": {**_gmm_routes(counts), "flash_attention":
+        "launches_by_route": {**routes_by_kernel(counts), "flash_attention":
                               counts["flash_attention_routes"]},
         "counters": counts["counters"]}
     if device != "cpu":
@@ -3928,7 +4011,7 @@ def phase_grad_int8_lora(device="cuda", overrides=(), batch=2, seq=256,
                         "loss_rel_diff": loss_rel, "worst_leaf": leaf,
                         "worst_leaf_rel_diff": leaf_rel, "leaves": len(ref),
                         "launches": got,
-                        "launches_by_route": _gmm_routes(counts)}
+                        "launches_by_route": routes_by_kernel(counts)}
         if not loss == loss or loss_rel > tol["loss_rel"] or \
                 leaf_rel > tol["grad_leaf_rel"]:
             emit(record)
@@ -3968,7 +4051,7 @@ def phase_grad_int8_lora(device="cuda", overrides=(), batch=2, seq=256,
     record["full"] = {"dtype": cfg.dtype, "layers": cfg.num_layers,
                       "batch": b, "seq": s, "loss": loss,
                       "fwd_bwd_s": wall, "launches": got,
-                      "launches_by_route": _gmm_routes(counts),
+                      "launches_by_route": routes_by_kernel(counts),
                       "counters": counts["counters"]}
     if device != "cpu":
         record["full"]["peak_mem_gib"] = \
@@ -4166,7 +4249,26 @@ def decode_window_rows(window, serve_paged, spec) -> list:
                           spec_contig["launches"]["flash_decode_verify"]},
         "kernel_paged_verify": {
             "serve_spec_paged":
-            spec_paged["launches"]["flash_decode_paged_verify"]}})
+            spec_paged["launches"]["flash_decode_paged_verify"]}}, {
+        "kernel_paged": _sum_routes([serve_paged], "flash_decode_paged"),
+        "kernel_verify": _sum_routes([spec_contig], "flash_decode_verify"),
+        "kernel_paged_verify": _sum_routes([spec_paged],
+                                           "flash_decode_paged_verify")})
+
+
+def _sum_routes(records, name) -> dict:
+    """``name``'s launches by route, summed over the paths' records."""
+    out = {}
+    for rec in records:
+        for r, n in rec.get("launches_by_route", {}).get(name, {}).items():
+            out[r] = out.get(r, 0) + n
+    return out
+
+
+def _decode_route_keys(head) -> dict:
+    """The route fields of a decode kernel's row from its path case."""
+    return {"kernel_route": head.get("route"),
+            "cluster": head.get("cluster"), "simt_ms": head.get("simt_ms")}
 
 
 #: the TPU kernels the decode instances replace (file:line)
@@ -4189,15 +4291,16 @@ _INT8_BRANCH = {
     "paddlefleetx_tpu/ops/pallas/flash_attention.py:1549-1559"}
 
 
-def _window_rows(window, suffix, launches) -> list:
+def _window_rows(window, suffix, launches, by_route) -> list:
     """Rows of kernels 6a, 5 and 6b (their int8 instances with
     ``suffix`` "_int8") from the cases of ``window`` and the main-path
-    ``launches`` of each phase."""
+    ``launches`` of each phase, in all and ``by_route``."""
     rows = []
     for phase, name in (("kernel_paged", "flash_decode_paged"),
                         ("kernel_verify", "flash_decode_verify"),
                         ("kernel_paged_verify", "flash_decode_paged_verify")):
         replaces = _DECODE_REPLACES[name]
+        routes = by_route[phase + suffix]
         phase, name = phase + suffix, name + suffix
         launches_p = launches[phase]
         cases = window[phase]
@@ -4221,11 +4324,13 @@ def _window_rows(window, suffix, launches) -> list:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "library_computes": head["library_computes"],
+            **_decode_route_keys(head), "launches_by_route": routes,
             "shape": {k: head[k] for k in ("dtype", "b", "h", "d", "window",
                                            "capacity", "page")},
             "by_window": {f"{c['dtype']}_w{c['window']}": {
-                k: c[k] for k in ("ms", "counterpart_ms", "plain_ms",
-                                  "library_ms", "bound_ms", "bound_by")}
+                k: c.get(k) for k in ("route", "ms", "simt_ms",
+                                      "counterpart_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")}
                 for c in cases},
             "cases": len(cases)})
         if suffix:
@@ -4293,6 +4398,9 @@ def int8_rows(dec8, window8, qmm_cases, runs) -> list:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "library_computes": head["library_computes"],
+        **_decode_route_keys(head),
+        "launches_by_route": _sum_routes([runs["contiguous"]],
+                                         "flash_decode"),
         "shape": {k: head[k] for k in ("dtype", "b", "h", "S", "d",
                                        "offsets", "shared_offset_bias")},
         "cases": len(dec8)})
@@ -4301,7 +4409,13 @@ def int8_rows(dec8, window8, qmm_cases, runs) -> list:
         "kernel_verify_int8": launched("flash_decode_verify_int8",
                                        ("contiguous_spec",)),
         "kernel_paged_verify_int8": launched(
-            "flash_decode_paged_verify_int8", ("paged_spec",))})
+            "flash_decode_paged_verify_int8", ("paged_spec",))}, {
+        "kernel_paged_int8": _sum_routes([runs["paged"]],
+                                         "flash_decode_paged"),
+        "kernel_verify_int8": _sum_routes([runs["contiguous_spec"]],
+                                          "flash_decode_verify"),
+        "kernel_paged_verify_int8": _sum_routes([runs["paged_spec"]],
+                                                "flash_decode_paged_verify")})
     return rows
 
 
@@ -4360,6 +4474,8 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
     rows[0].update(kernel_route=fwd[0].get("route"),
                    block_n=fwd[0].get("block_n"), mma_ms=fwd[0].get("mma_ms"),
                    launches_by_route=k1_routes)
+    rows[1].update(_decode_route_keys(dec[0]),
+                   launches_by_route=_sum_routes([serve], "flash_decode"))
     if fwd_drop:
         t = fwd_drop[0]
         rows[0]["train_shape"] = {k: t.get(k) for k in (

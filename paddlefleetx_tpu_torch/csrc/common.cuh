@@ -1,8 +1,9 @@
 // Shared device helpers of the port's kernels: stores from the fp32 the
 // kernels compute in to the storage types (bf16, fp32), 16-byte vector
 // loads that widen to fp32, the int8 cache's 8-byte loads that widen
-// and dequantize, and the bf16 mma.sync product of the tensor-core
-// kernels with its transposed fragment load.
+// and dequantize, the exact int8 -> bf16 widening, cp.async copies
+// (zero-filled past a tile's live keys), and the bf16 mma.sync product
+// of the tensor-core kernels with its transposed fragment load.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -108,6 +109,33 @@ static __device__ __forceinline__ void widen_int8(const uint2& r, float* out,
   }
 }
 
+// Four int8 (one word, byte 0 first) to four bf16, exactly: each byte,
+// its sign bit flipped, becomes the low byte of the fp32 2^23 + u (u =
+// b + 128), from which 2^23 + 128 is subtracted; the integer result is
+// exact in bf16, so its upper half is its bf16. lo holds bytes 0 and 1
+// (byte 0 in the low half), hi bytes 2 and 3. Two logic, six permutes and
+// four adds for four values, where widen16 spends a shift, a mask and
+// an integer-to-float conversion on each (kernel 7's stream and wgmma
+// routes, the decode kernels' int8 tiles).
+static __device__ __forceinline__ void widen4(uint32_t word, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t u = word ^ 0x80808080u;
+  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                          0x7650)),
+                             8388736.f);
+  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                          0x7651)),
+                             8388736.f);
+  const float f2 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                          0x7652)),
+                             8388736.f);
+  const float f3 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                          0x7653)),
+                             8388736.f);
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
 static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
@@ -115,6 +143,45 @@ static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 static __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 16 (or 4) bytes from global to shared memory without registers; only
+// `src_bytes` (0 or the full size) are read, the rest are zero-filled.
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                                  int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+static __device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most `kPending` of this thread's groups are in flight.
+template <int kPending>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8j .. 8j + 7 give
+// the (16-byte aligned) row addresses of matrix j, r[j] is its fragment
+// (row lane / 4, columns 2 (lane % 4) and + 1). The B operand of
+// mma_bf16 from a tile staged [n][k] (the reduction axis contiguous)
+// comes this way.
+static __device__ __forceinline__ void ldsm_x4(uint32_t* r,
+                                               const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 // Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8j ..

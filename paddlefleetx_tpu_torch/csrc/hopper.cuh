@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (csrc/grouped_matmul.cu, kernels 8 and 9; csrc/flash_fwd.cu, kernel 1;
 // csrc/flash_bwd.cu, kernels 3 and 4; csrc/quantized_matmul.cu, kernel
-// 7): mbarriers, TMA loads and
+// 7) and the cluster split of the decode kernels (csrc/flash_decode.cu):
+// mbarriers, pushes into another block's shared memory (mapa, st.async)
+// with the cluster-scope wait for them, TMA loads and
 // stores (bulk tensor copies counted on an mbarrier), the async-proxy
 // fence, the wgmma shared-memory descriptor
 // of a 128-byte-swizzled bf16 tile, wgmma fences, commits and waits, the
@@ -70,6 +72,51 @@ static __device__ __forceinline__ void mbar_wait(uint64_t* bar,
         : "=r"(done)
         : "r"(a), "r"(parity)
         : "memory");
+  }
+}
+
+// The shared::cluster address of `cta_addr` in block `rank`'s window.
+static __device__ __forceinline__ uint32_t mapa(uint32_t cta_addr,
+                                                int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(cta_addr), "r"(rank));
+  return r;
+}
+
+// Two floats into another block's shared memory (`dst`), counted in bytes
+// on that block's mbarrier `bar` (both shared::cluster addresses).
+static __device__ __forceinline__ void st_async2(uint32_t dst, float a,
+                                                 float b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+// Whether the barrier's phase of parity `parity` has completed, with
+// cluster-scope acquire (its bytes came from other blocks).
+static __device__ __forceinline__ bool mbar_try_wait_cluster(
+    uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Spin until the barrier's phase of parity `parity` has completed, with
+// cluster-scope acquire.
+static __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                         uint32_t parity) {
+  while (!mbar_try_wait_cluster(bar, parity)) {
   }
 }
 

@@ -125,6 +125,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using pfx::mapa;
+using pfx::mbar_wait_cluster;
+using pfx::st_async2;
+using pfx::widen4;
+
 // ---- route mma (bf16) and the fp32 kernel: the first design -----------
 
 
@@ -389,32 +394,6 @@ __global__ void __launch_bounds__(kF32Threads)
 
 // ---- the byte-permute widening of the stream and wgmma routes -----------
 
-// Four int8 (one word, byte 0 first) to four bf16, exactly: each byte,
-// its sign bit flipped, becomes the low byte of the fp32 2^23 + u (u =
-// b + 128), from which 2^23 + 128 is subtracted; the integer result is
-// exact in bf16, so its upper half is its bf16. lo holds bytes 0 and 1
-// (byte 0 in the low half), hi bytes 2 and 3. Two logic, six permutes and
-// four adds for four values, where widen16 spends a shift, a mask and
-// an integer-to-float conversion on each.
-__device__ __forceinline__ void widen4(uint32_t word, uint32_t& lo,
-                                       uint32_t& hi) {
-  const uint32_t u = word ^ 0x80808080u;
-  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
-                                                          0x7650)),
-                             8388736.f);
-  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
-                                                          0x7651)),
-                             8388736.f);
-  const float f2 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
-                                                          0x7652)),
-                             8388736.f);
-  const float f3 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
-                                                          0x7653)),
-                             8388736.f);
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
 // Two bf16 from two bytes of `word` (byte 2 h and 2 h + 1, the first in
 // the low half), exactly, by widen4's byte permutes.
 __device__ __forceinline__ uint32_t widen2(uint32_t word, int h) {
@@ -465,44 +444,6 @@ __host__ __device__ inline int st_slot_off(int stages, int mpad) {
 __host__ __device__ inline int st_smem(int stages, int mpad, int splits) {
   return 1024 + st_slot_off(stages, mpad) +
          2 * splits * st_rows(splits) * mpad * 4;
-}
-
-// The shared::cluster address of `cta_addr` in block `rank`'s window.
-__device__ __forceinline__ uint32_t mapa(uint32_t cta_addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(cta_addr), "r"(rank));
-  return r;
-}
-
-// Two floats into another block's shared memory (`dst`), counted in bytes
-// on that block's mbarrier `bar` (both shared::cluster addresses).
-__device__ __forceinline__ void st_async2(uint32_t dst, float a, float b,
-                                          uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
-      "{%1, %2}, [%3];\n" ::"r"(dst),
-      "f"(a), "f"(b), "r"(bar)
-      : "memory");
-}
-
-// Spin until the barrier's phase of parity `parity` has completed, with
-// cluster-scope acquire (its bytes came from other blocks).
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
-                                                  uint32_t parity) {
-  const uint32_t a = pfx::smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
 }
 
 // One cluster of `splits` blocks per 64 output channels c0 .. c0 + 63;

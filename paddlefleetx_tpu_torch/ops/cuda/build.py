@@ -47,15 +47,17 @@ SIGNATURES = {
     "pfx_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _LL, _LL, _LL, _F, _I, _I, *_DROP, _I, _I, _P],
     # the decode kernels take q, k, v, then the int8 cache's K and V
-    # scales (null for a cache of q's type)
+    # scales (null for a cache of q's type); ... is_bf16, then the route
+    # and its cluster size
     "pfx_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                         _I, _F, _I, _P],
+                         _I, _F, _I, _I, _I, _P],
     "pfx_flash_decode_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _F, _I, _P],
+                                _I, _F, _I, _I, _I, _P],
     "pfx_flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _F, _I, _P],
+                               _I, _I, _F, _I, _I, _I, _P],
     "pfx_flash_decode_paged_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                      _I, _I, _I, _I, _I, _F, _I, _P],
+                                      _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                      _P],
     # ... is_bf16, then the route and its cluster size
     "pfx_quantized_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pfx_quantized_matmul_dx": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -33,10 +33,14 @@
   (``:1422``) and ``_paged_verify_kernel`` (``:1433``): the same
   through a page table over a ``[P, h, page, d]`` page pool.
 
-  The four decode kernels are one templated body; on the card verify
-  query ``j`` equals kernel 2 at offset ``offset + j`` and the paged
-  kernels equal the contiguous ones on the gathered cache, bit for
-  bit.
+  The four decode kernels are one family with two routes, which
+  :func:`plan_decode` picks from the shape: ``mma`` (bf16 queries: the
+  tensor cores, the key length split over a thread-block cluster) and
+  ``simt`` (fp32's CUDA-core body, kept as bf16's comparison route;
+  ``chip_smoke.py`` times it through each wrapper's ``route``
+  argument). On either route verify query ``j`` equals kernel 2 at
+  offset ``offset + j`` and the paged kernels equal the contiguous ones
+  on the gathered cache, bit for bit.
 - Each decode entry point also reads an int8 cache
   (``kv_cache_dtype: int8``, the ``quantized=True`` branch of the TPU
   kernels): given ``k_scale`` / ``v_scale`` (one fp32 scale per (row,
@@ -61,9 +65,10 @@ a plain integer: ``flash_attention.launches`` (kernel 1; by route in
 ``flash_decode_verify.launches`` (kernel 5),
 ``flash_decode_paged.launches`` (kernel 6a) and
 ``flash_decode_paged_verify.launches`` (kernel 6b), the int8 instances
-of the last four apart in ``.launches_int8`` of the same wrappers, so a
-run can show that its main path went through the kernels and which
-instance ran.
+of the last four apart in ``.launches_int8`` of the same wrappers and
+both by route in their ``.launches_by_route``, so a run can show that
+its main path went through the kernels and which instance and route
+ran.
 
 The gradient of :func:`flash_attention` is wired through
 ``torch.library.custom_op`` (``pfx::flash_attention``), so activation
@@ -532,6 +537,87 @@ flash_attention_backward.launches_dq = 0
 #: widest query window the decode kernels take (the JAX package's
 #: ``MAX_VERIFY_WINDOW``): a speculative verify of up to 31 drafts
 MAX_VERIFY_WINDOW = 32
+#: the decode kernels' routes (``csrc/flash_decode.cu``): ``mma`` (bf16
+#: queries over a bf16 or int8 cache: the tensor cores, the key length
+#: split over a thread-block cluster; planned) and ``simt`` (CUDA cores:
+#: fp32's only route, and the bf16 / int8 comparison route that
+#: ``chip_smoke.py`` times beside ``mma``)
+DECODE_ROUTES = ("mma", "simt")
+#: each route's code in the C entry points
+_DECODE_ROUTE_CODE = {"simt": 0, "mma": 1}
+#: the ``mma`` route's chunk of absolute key positions (block ``r`` of a
+#: cluster walks chunks ``r, r + cluster, ...``), its largest cluster
+#: (the portable limit; half at head_dim 128, where the leader block's
+#: slots for 8 blocks' partials of 16 window rows would pass the 227 KB
+#: of shared memory a block may have), and the chunks a block walks
+#: before the plan adds blocks to the cluster: 8 over a bf16 cache, 4
+#: over an int8 one, whose tiles are half the bytes and cost a widening
+DECODE_CHUNK = 128
+DECODE_MAX_CLUSTER = 8
+DECODE_CHUNKS_PER_BLOCK = {"bf16": 8, "int8": 4}
+
+
+class DecodePlan(NamedTuple):
+    """A decode call's route, the keys of a block's chunk and the blocks
+    of a cluster (``simt``: one block walks the whole capacity)."""
+    route: str
+    chunk: int
+    cluster: int
+
+
+def plan_decode(b: int, w: int, h: int, S: int, d: int, dtype: torch.dtype,
+                int8: bool, paged: bool, page: int) -> DecodePlan:
+    """The route of one decode-kernel call (kernels 2, 5, 6a, 6b), from
+    its shape alone (pure Python: the CPU tests hold it).
+
+    Args:
+        b, w, h, S, d (int): rows, window queries, heads, capacity (the
+            contiguous cache's ``S``, a pool's ``max_pages * page``),
+            head_dim.
+        dtype (torch.dtype): q's type.
+        int8 (bool): whether the cache is int8.
+        paged (bool), page (int): whether the cache is a page pool, and
+            its page size.
+
+    Returns:
+        ``simt`` for fp32 queries (TF32 misses fp32 parity); else
+        ``mma`` with ``DECODE_CHUNK``-key chunks in clusters of the
+        largest power of two up to ``DECODE_MAX_CLUSTER`` (4 at head_dim
+        128) that leaves each block ``DECODE_CHUNKS_PER_BLOCK`` chunks
+        of its cache type (one block below that): a block's warps stream
+        their tiles through a two-stage ring, and on the H100 larger
+        clusters paid more to launch than they saved at the serving
+        ticks' shapes (``PERF.md`` §6). The chunk and the cluster follow
+        from the capacity, d and the cache type alone, never from ``w``,
+        the offsets or the addressing (the other arguments take part in
+        no choice): verify
+        query ``j`` equals kernel 2 at offset ``offset + j``, and a pool
+        equals its gathered cache, bit for bit only where both split the
+        keys alike.
+    """
+    if dtype != torch.bfloat16:
+        return DecodePlan("simt", S, 1)
+    chunks = -(-S // DECODE_CHUNK)
+    most = DECODE_MAX_CLUSTER if d == 64 else DECODE_MAX_CLUSTER // 2
+    per_block = DECODE_CHUNKS_PER_BLOCK["int8" if int8 else "bf16"]
+    cluster = 1
+    while cluster * 2 <= min(chunks // per_block, most):
+        cluster *= 2
+    return DecodePlan("mma", DECODE_CHUNK, cluster)
+
+
+def _decode_route(name, q, S, quantized, page, route=None) -> DecodePlan:
+    """The planned route of a decode call, or the one the caller named
+    (``chip_smoke.py`` times ``simt`` beside ``mma``); raises on a route
+    that is not one, or ``mma`` for a query that is not bf16."""
+    b, w, h, d = q.shape
+    planned = plan_decode(b, w, h, S, d, q.dtype, quantized, page > 0, page)
+    if route is None or route == planned.route:
+        return planned
+    if route != "simt":
+        raise ValueError(f"{name}: route {route!r} for a {q.dtype} query; "
+                         f"the routes are {DECODE_ROUTES}, mma for bf16")
+    return DecodePlan("simt", S, 1)
 
 
 def dequantize_cache(t: torch.Tensor, scale: Optional[torch.Tensor]
@@ -674,12 +760,14 @@ def _scale_ptrs(k_scale, v_scale):
     return k_scale.data_ptr(), v_scale.data_ptr()
 
 
-def _count(wrapper, quantized: bool) -> None:
-    """Count one launch of a decode kernel's bf16/fp32 or int8 instance."""
+def _count(wrapper, quantized: bool, route: str) -> None:
+    """Count one launch of a decode kernel's bf16/fp32 or int8 instance,
+    and under its route."""
     if quantized:
         wrapper.launches_int8 += 1
     else:
         wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
 
 
 def _check_offsets(name, offsets, b) -> None:
@@ -688,16 +776,18 @@ def _check_offsets(name, offsets, b) -> None:
                          f"{offsets.dtype} {tuple(offsets.shape)}")
 
 
-def _launch_rc(name: str, rc: int) -> None:
+def _launch_rc(name: str, rc: int, route: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with "
+        raise RuntimeError(f"{name}: {route} kernel launch failed with "
                            f"cudaError {rc}")
 
 
 def _launch_decode(q, k, v, offsets: Optional[torch.Tensor],
                    shared_offset: int, bias: Optional[torch.Tensor],
-                   k_scale, v_scale, quantized: bool) -> torch.Tensor:
-    """Launch kernel 2 (either entry point) and count the launch."""
+                   k_scale, v_scale, quantized: bool,
+                   p: DecodePlan) -> torch.Tensor:
+    """Launch kernel 2 (either entry point) by the route ``p`` and count
+    the launch."""
     b, _, h, d = q.shape
     S = k.shape[2]
     _check_kernel_inputs("flash_decode", q, k, v, quantized)
@@ -720,16 +810,18 @@ def _launch_decode(q, k, v, offsets: Optional[torch.Tensor],
             int(shared_offset),
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), b, h, S, d, d ** -0.5,
-            int(q.dtype == torch.bfloat16), stream)
-    _launch_rc("flash_decode", rc)
-    _count(flash_decode, quantized)
+            int(q.dtype == torch.bfloat16), _DECODE_ROUTE_CODE[p.route],
+            p.cluster, stream)
+    _launch_rc("flash_decode", rc, p.route)
+    _count(flash_decode, quantized, p.route)
     return out
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  offset: int, bias: Optional[torch.Tensor] = None,
                  k_scale: Optional[torch.Tensor] = None,
-                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 v_scale: Optional[torch.Tensor] = None,
+                 route: Optional[str] = None) -> torch.Tensor:
     """One decode step with one shared cache index (kernel 2, the
     lockstep ``generate()`` path): every row of ``q [b, 1, h, d]``
     attends to cache positions ``<= offset`` of ``k/v [b, h, S, d]``,
@@ -739,51 +831,57 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``offset`` is a host int, passed to the kernel as an argument. On
     CPU tensors the plain version runs; on CUDA tensors the kernel
-    launches or this raises.
+    launches by the route :func:`plan_decode` picks, or by ``route``
+    (one of ``DECODE_ROUTES``; counted in ``.launches_by_route``), or
+    this raises.
     """
     _check_decode(q, k, v)
     quantized = _check_kv_scales("flash_decode", k, v, k_scale, v_scale)
+    p = _decode_route("flash_decode", q, k.shape[2], quantized, 0, route)
     offset = int(offset)
     if _on_cpu(q, k, v, bias, k_scale, v_scale):
         return flash_decode_reference(q, k, v, offset, bias, k_scale,
                                       v_scale)
     return _launch_decode(q, k, v, None, offset, bias, k_scale, v_scale,
-                          quantized)
+                          quantized, p)
 
 
 flash_decode.launches = 0
 flash_decode.launches_int8 = 0
+flash_decode.launches_by_route = dict.fromkeys(DECODE_ROUTES, 0)
 
 
 def flash_decode_ragged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         offsets: torch.Tensor,
                         k_scale: Optional[torch.Tensor] = None,
-                        v_scale: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        v_scale: Optional[torch.Tensor] = None,
+                        route: Optional[str] = None) -> torch.Tensor:
     """Decode with per-row offsets over the contiguous cache, the
     serving tick: row ``i`` of ``q [b, 1, h, d]`` attends to positions
     ``<= offsets[i]`` of its own cache row and walks no further, so a
     short slot never pays for a long one. ``offsets`` is a ``[b]`` int32
     tensor on q's device; ``k_scale`` / ``v_scale`` as in
     :func:`flash_decode`. Launches kernel 2 (counted in
-    ``flash_decode.launches`` or ``.launches_int8``); the window is
-    :func:`flash_decode_verify`.
+    ``flash_decode.launches`` or ``.launches_int8``, and by route, as
+    there); the window is :func:`flash_decode_verify`.
     """
     _check_decode(q, k, v)
     quantized = _check_kv_scales("flash_decode_ragged", k, v, k_scale,
                                  v_scale)
+    p = _decode_route("flash_decode_ragged", q, k.shape[2], quantized, 0,
+                      route)
     if _on_cpu(q, k, v, offsets, k_scale, v_scale):
         return flash_decode_reference(q, k, v, offsets, None, k_scale,
                                       v_scale)
     return _launch_decode(q, k, v, offsets, 0, None, k_scale, v_scale,
-                          quantized)
+                          quantized, p)
 
 
 def flash_decode_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         offsets: torch.Tensor,
                         k_scale: Optional[torch.Tensor] = None,
-                        v_scale: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        v_scale: Optional[torch.Tensor] = None,
+                        route: Optional[str] = None) -> torch.Tensor:
     """The speculative verify window over the contiguous cache (kernel
     5, ``csrc/flash_decode.cu``): query ``j`` of row ``i`` of ``q [b, W,
     h, d]`` (``1 < W <= 32``) sits at position ``offsets[i] + j`` and
@@ -791,12 +889,15 @@ def flash_decode_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (int8 with ``k_scale`` / ``v_scale``, as in :func:`flash_decode`).
     On the card query ``j`` equals kernel 2 at offset ``offsets[i] + j``
     bit for bit. On CPU tensors the plain version runs; on CUDA tensors
-    the kernel launches (``flash_decode_verify.launches`` or
-    ``.launches_int8``) or this raises.
+    the kernel launches by the planned route or ``route``, as in
+    :func:`flash_decode` (``flash_decode_verify.launches`` or
+    ``.launches_int8``, and ``.launches_by_route``), or this raises.
     """
     _check_decode(q, k, v, range(2, MAX_VERIFY_WINDOW + 1))
     quantized = _check_kv_scales("flash_decode_verify", k, v, k_scale,
                                  v_scale)
+    p = _decode_route("flash_decode_verify", q, k.shape[2], quantized, 0,
+                      route)
     if _on_cpu(q, k, v, offsets, k_scale, v_scale):
         return flash_decode_reference(q, k, v, offsets, None, k_scale,
                                       v_scale)
@@ -813,21 +914,23 @@ def flash_decode_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *_scale_ptrs(k_scale, v_scale), offsets.data_ptr(),
             out.data_ptr(), b, w, h, S, d, d ** -0.5,
-            int(q.dtype == torch.bfloat16), stream)
-    _launch_rc("flash_decode_verify", rc)
-    _count(flash_decode_verify, quantized)
+            int(q.dtype == torch.bfloat16), _DECODE_ROUTE_CODE[p.route],
+            p.cluster, stream)
+    _launch_rc("flash_decode_verify", rc, p.route)
+    _count(flash_decode_verify, quantized, p.route)
     return out
 
 
 flash_decode_verify.launches = 0
 flash_decode_verify.launches_int8 = 0
+flash_decode_verify.launches_by_route = dict.fromkeys(DECODE_ROUTES, 0)
 
 
 def _launch_paged(wrapper, q, k, v, offsets, page_table, dims, k_scale,
-                  v_scale, quantized: bool) -> torch.Tensor:
+                  v_scale, quantized: bool, p: DecodePlan) -> torch.Tensor:
     """Launch kernel 6a or 6b through its C entry point
-    ``pfx_<wrapper name>``, whose leading sizes are ``dims``, and count
-    the launch."""
+    ``pfx_<wrapper name>``, whose leading sizes are ``dims``, by the
+    route ``p``, and count the launch."""
     name = wrapper.__name__
     b, _, _, d = q.shape
     _check_kernel_inputs(name, q, k, v, quantized)
@@ -845,9 +948,10 @@ def _launch_paged(wrapper, q, k, v, offsets, page_table, dims, k_scale,
             *_scale_ptrs(k_scale, v_scale), offsets.data_ptr(),
             page_table.data_ptr(), out.data_ptr(), *dims, k.shape[2],
             page_table.shape[1], d, d ** -0.5,
-            int(q.dtype == torch.bfloat16), stream)
-    _launch_rc(name, rc)
-    _count(wrapper, quantized)
+            int(q.dtype == torch.bfloat16), _DECODE_ROUTE_CODE[p.route],
+            p.cluster, stream)
+    _launch_rc(name, rc, p.route)
+    _count(wrapper, quantized, p.route)
     return out
 
 
@@ -855,8 +959,8 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        offsets: torch.Tensor,
                        page_table: torch.Tensor,
                        k_scale: Optional[torch.Tensor] = None,
-                       v_scale: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       v_scale: Optional[torch.Tensor] = None,
+                       route: Optional[str] = None) -> torch.Tensor:
     """Decode through a paged KV pool (kernel 6a; the window is
     :func:`flash_decode_paged_verify`): row ``i`` of ``q [b, 1, h, d]``
     attends to positions ``<= offsets[i]`` of its logical cache, whose
@@ -868,47 +972,57 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     page]`` fp32 scale pools ``k_scale`` / ``v_scale``. On the card the
     result equals kernel 2 on the gathered cache bit for bit. On CPU
     tensors the plain version (:func:`flash_decode_paged_reference`)
-    runs; on CUDA tensors the kernel launches
-    (``flash_decode_paged.launches`` or ``.launches_int8``) or this
-    raises.
+    runs; on CUDA tensors the kernel launches by the planned route or
+    ``route``, as in :func:`flash_decode` (``flash_decode_paged.launches``
+    or ``.launches_int8``, and ``.launches_by_route``), or this raises.
     """
     _check_paged(q, k, v, page_table)
     quantized = _check_kv_scales("flash_decode_paged", k, v, k_scale,
                                  v_scale)
+    p = _decode_route("flash_decode_paged", q,
+                      k.shape[2] * page_table.shape[1], quantized,
+                      k.shape[2], route)
     if _on_cpu(q, k, v, offsets, page_table, k_scale, v_scale):
         return flash_decode_paged_reference(q, k, v, offsets, page_table,
                                             k_scale, v_scale)
     return _launch_paged(flash_decode_paged, q, k, v, offsets, page_table,
                          (q.shape[0], q.shape[2]), k_scale, v_scale,
-                         quantized)
+                         quantized, p)
 
 
 flash_decode_paged.launches = 0
 flash_decode_paged.launches_int8 = 0
+flash_decode_paged.launches_by_route = dict.fromkeys(DECODE_ROUTES, 0)
 
 
 def flash_decode_paged_verify(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, offsets: torch.Tensor,
                               page_table: torch.Tensor,
                               k_scale: Optional[torch.Tensor] = None,
-                              v_scale: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
+                              v_scale: Optional[torch.Tensor] = None,
+                              route: Optional[str] = None) -> torch.Tensor:
     """The speculative verify window through a paged pool (kernel 6b):
     :func:`flash_decode_verify`'s within-window causal mask over
     :func:`flash_decode_paged`'s addressing (int8 pools as there),
     ``1 < W <= 32``. On the card it equals kernel 5 on the gathered
-    cache bit for bit. Launches count in
-    ``flash_decode_paged_verify.launches`` or ``.launches_int8``."""
+    cache bit for bit. Launches (by the planned route or ``route``)
+    count in ``flash_decode_paged_verify.launches`` or
+    ``.launches_int8``, and ``.launches_by_route``."""
     _check_paged(q, k, v, page_table, range(2, MAX_VERIFY_WINDOW + 1))
     quantized = _check_kv_scales("flash_decode_paged_verify", k, v,
                                  k_scale, v_scale)
+    p = _decode_route("flash_decode_paged_verify", q,
+                      k.shape[2] * page_table.shape[1], quantized,
+                      k.shape[2], route)
     if _on_cpu(q, k, v, offsets, page_table, k_scale, v_scale):
         return flash_decode_paged_reference(q, k, v, offsets, page_table,
                                             k_scale, v_scale)
     return _launch_paged(flash_decode_paged_verify, q, k, v, offsets,
                          page_table, q.shape[:3], k_scale, v_scale,
-                         quantized)
+                         quantized, p)
 
 
 flash_decode_paged_verify.launches = 0
 flash_decode_paged_verify.launches_int8 = 0
+flash_decode_paged_verify.launches_by_route = dict.fromkeys(DECODE_ROUTES,
+                                                            0)

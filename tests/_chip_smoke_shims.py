@@ -28,18 +28,34 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
                "library_ms"}
 
 
-def _counting(fn):
+def _decode_route(args, kwargs, paged):
+    """The route :func:`fa.plan_decode` picks for a decode wrapper's call
+    (``args``: q, the cache or pool, ..., and a pool's page table)."""
+    q, k = args[:2]
+    b, w, h, d = q.shape
+    page = k.shape[2] if paged else 0
+    S = page * args[4].shape[1] if paged else k.shape[2]
+    return fa.plan_decode(b, w, h, S, d, q.dtype,
+                          kwargs.get("k_scale") is not None, paged,
+                          page).route
+
+
+def _counting(fn, counted=None, paged=False):
     """A decode wrapper that counts its runs as the kernel counts its
-    launches: the int8 instance (KV scales given) apart."""
+    launches (on ``counted``, by default the shim itself): the int8
+    instance (KV scales given) apart, and by planned route."""
     @functools.wraps(fn)
     def shim(*args, **kwargs):
+        into = counted or shim
         if kwargs.get("k_scale") is not None:
-            shim.launches_int8 += 1
+            into.launches_int8 += 1
         else:
-            shim.launches += 1
+            into.launches += 1
+        into.launches_by_route[_decode_route(args, kwargs, paged)] += 1
         return fn(*args, **kwargs)
     shim.launches = 0
     shim.launches_int8 = 0
+    shim.launches_by_route = dict.fromkeys(fa.DECODE_ROUTES, 0)
     return shim
 
 
@@ -81,20 +97,14 @@ def shims(monkeypatch):
     monkeypatch.setattr(fa, "flash_attention_reference", fwd_shim)
     monkeypatch.setattr(fa, "flash_attention_backward_reference", bwd_shim)
     decode = _counting(fa.flash_decode)
-    ragged = fa.flash_decode_ragged
-
-    def ragged_shim(*args, **kwargs):
-        # kernel 2's second entry point counts in flash_decode.launches
-        if kwargs.get("k_scale") is not None:
-            decode.launches_int8 += 1
-        else:
-            decode.launches += 1
-        return ragged(*args, **kwargs)
     monkeypatch.setattr(fa, "flash_decode", decode)
-    monkeypatch.setattr(fa, "flash_decode_ragged", ragged_shim)
+    # kernel 2's second entry point counts in flash_decode's counts
+    monkeypatch.setattr(fa, "flash_decode_ragged",
+                        _counting(fa.flash_decode_ragged, decode))
     for name in ("flash_decode_paged", "flash_decode_verify",
                  "flash_decode_paged_verify"):
-        monkeypatch.setattr(fa, name, _counting(getattr(fa, name)))
+        monkeypatch.setattr(fa, name, _counting(getattr(fa, name),
+                                                paged="paged" in name))
     qmm_plain = qmm.quantized_matmul_reference
     dx_plain = qmm.quantized_matmul_dx_reference
 

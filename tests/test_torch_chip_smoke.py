@@ -218,6 +218,14 @@ def test_paged_serving_phases_run_at_tiny_size(shims, capsys, monkeypatch):
         spec_contig["decode_ticks"] * 2 > 0
     assert spec_contig["slots"] == 2 and not spec_contig["paged"]
     assert 0.0 <= spec_paged["spec_accept_rate"] <= 1.0
+    # every decode launch counted under the route the model's dtype plans
+    want = "mma" if paged["dtype"] == "bfloat16" else "simt"
+    for rec, name in ((paged, "flash_decode_paged"),
+                      (spec_paged, "flash_decode_paged_verify"),
+                      (spec_contig, "flash_decode_verify")):
+        routes = rec["launches_by_route"][name]
+        assert routes[want] == rec["launches"][name] == \
+            sum(routes.values())
     chip_smoke.phase_serve_cli("cpu", TINY_1024 + ["Model.kv_pool_pages=9"],
                                paged_spec=True)
     lines = {}
@@ -267,6 +275,12 @@ def test_paged_serving_phases_run_at_tiny_size(shims, capsys, monkeypatch):
     assert all(rows[n]["exact_max_abs_err"] == 0.0 for n in (
         "flash_decode_paged", "flash_decode_verify",
         "flash_decode_paged_verify"))
+    for n in ("flash_decode_paged", "flash_decode_verify",
+              "flash_decode_paged_verify"):
+        assert rows[n]["kernel_route"] == "mma" and \
+            rows[n]["simt_ms"] == 0.05 and rows[n]["cluster"] == 1
+    assert rows["flash_decode_paged"]["launches_by_route"] == \
+        paged["launches_by_route"]["flash_decode_paged"]
 
 
 def _window_case(phase, window):
@@ -277,7 +291,8 @@ def _window_case(phase, window):
             "exact_max_abs_err": 0.0, "ms": 0.02, "call_ms": 0.05,
             "counterpart_ms": 0.015, "plain_ms": 0.3, "library_ms": 0.04,
             "library_computes": "SDPA", "bound_ms": 0.008,
-            "bound_by": "bytes"}
+            "bound_by": "bytes", "route": "mma", "chunk": 128, "cluster": 1,
+            "simt_ms": 0.05}
 
 
 def test_parity_paged_phase_runs_at_tiny_size(shims, capsys):
@@ -326,6 +341,26 @@ def test_decode_kernel_checks_hold_what_they_say(monkeypatch):
     with pytest.raises(AssertionError, match="plain version"):
         chip_smoke.decode_window_case(fa, torch, "paged", torch.float32,
                                       1, 3, n_sets=1, device="cpu")
+
+
+def test_decode_cases_carry_the_route_on_the_cpu():
+    """The CPU rehearsal of the decode kernels' cases records the route
+    :func:`plan_decode` picks, its chunk and cluster, and leaves every
+    time (the planned route's and ``simt``'s) None."""
+    import torch
+    case = chip_smoke.decode_case(fa, torch, torch.bfloat16, [0, 5, 130],
+                                  2, 256, 64, False, 7, n_sets=1,
+                                  device="cpu")
+    assert (case["route"], case["cluster"]) == ("mma", 1)
+    assert case["ms"] is None and case["simt_ms"] is None
+    for dtype, kind, w, route in ((torch.bfloat16, "paged_verify", 5, "mma"),
+                                  (torch.float32, "paged", 1, "simt")):
+        case = chip_smoke.decode_window_case(fa, torch, kind, dtype, w, 3,
+                                             n_sets=1, device="cpu")
+        assert case["route"] == route and case["exact_max_abs_err"] == 0.0
+        assert (case["chunk"], case["cluster"]) == \
+            ((128, 1) if route == "mma" else (1024, 1))
+        assert case["ms"] is None and case["simt_ms"] is None
 
 
 def test_paged_launch_check_catches_wrong_routes(shims):
