@@ -64,7 +64,19 @@ parallel degrees set to 1) for 16 steps through ``cli.train_main``,
 with kernel 8 held to 768 and kernel 9 to 384 launches a step; one
 profiled MoE step; and ``sort_pallas`` held to ``sort`` (``torch.bmm``)
 at 2 layers in fp32 and bf16, refused with one expert's dw planted
-wrong.
+wrong. Then MoE serving: kernel 8 (bf16) at the serving forwards' shapes
+(the 16-slot decode tick, the 5-token verify window, a 256-token paged
+chunk, the contiguous admissions' buckets 16..512; fc1 and fc2) against
+its plain version, timed beside its bound and ``torch.bmm`` over the
+same weight bytes; the 8x345M model at full width from the generation
+recipe (``MOE_KNOBS``) through the contiguous, paged, paged speculative
+and int8 (both knobs) servers on the headline trace (``serve_moe``,
+each arm's
+counts zeroed just before and read just after: kernel 8 exactly twice
+a layer and forward, no ``moe/fallback``); a profile of its paged and
+speculative ticks; the ``serve`` and ``generate`` entry points with it;
+and in fp32 at full width its greedy rows through kernel 8 held to the
+same weights under ``sort`` (``torch.bmm``), contiguous and paged.
 Then multi-tenant LoRA (``lora_rank`` 8, 5 bank rows): kernel 7's dx
 route (the int8 matmul's input gradient) at the four dense sites, M 16
 and 4096, bf16 and fp32, timed beside ``torch.matmul``; kernels 8 and 9
@@ -1207,10 +1219,10 @@ def _gmm_bound(kind, counts, gw, c, k, n, itemsize):
 
 
 def _gmm_counts(torch, g, c, empty, gen, device):
-    """Seeded live rows per group, uniform in [C / 2, C], the ``empty``
-    groups 0 (the recipe's routing at capacity factor 1.25 fills most
-    slots)."""
-    counts = torch.randint(c // 2, c + 1, (g,), generator=gen,
+    """Seeded live rows per group, uniform in [max(1, C / 2), C], the
+    ``empty`` groups 0 (the recipe's routing at capacity factor 1.25
+    fills most slots)."""
+    counts = torch.randint(max(1, c // 2), c + 1, (g,), generator=gen,
                            device=device, dtype=torch.int32)
     counts[list(empty)] = 0
     return counts
@@ -1992,7 +2004,8 @@ def phase_serve_cli(device="cuda", overrides=(), paged_spec=False,
     """The ``serve`` entry point as a user calls it, with the recipe's
     own sampling (top-k 50, top-p 0.75): 8 requests, ``max_dec_len``
     16, 4 slots; every request finishes and every admission and tick
-    went through the kernels. With ``paged_spec`` the recipe's
+    went through the kernels (an MoE model's, ``overrides`` with
+    ``MOE_KNOBS``, kernel 8 too: :func:`check_moe_serve_counts`). With ``paged_spec`` the recipe's
     ``Model.kv_page_size`` / ``kv_pool_pages`` and
     ``Generation.spec_method`` knobs turn on the paged, speculative
     server (every tick the paged verify kernel). With ``int8`` both
@@ -2027,6 +2040,9 @@ def phase_serve_cli(device="cuda", overrides=(), paged_spec=False,
     mcfg = GPTConfig.from_config(get_config(CONFIG, over))
     layers = mcfg.num_layers
     label = "serve_cli_paged_spec" if paged_spec else "serve_cli"
+    if mcfg.moe_num_experts:
+        label += "_moe"
+        check_moe_serve_counts(counts, summary, layers, label)
     if int8:
         label = "serve_cli_int8"
         if summary.get("kv_cache_dtype") != "int8" or \
@@ -2051,7 +2067,7 @@ def phase_serve_cli(device="cuda", overrides=(), paged_spec=False,
           "launches": {k: counts[k] for k in (
               "flash_attention", "flash_decode",
               "flash_decode_paged_verify", "flash_decode_paged_int8",
-              "quantized_matmul")}})
+              "quantized_matmul", "grouped_matmul")}})
 
 
 def top2_gap(model, prompt, prefix, adapter_row=None):
@@ -2162,20 +2178,44 @@ def phase_parity(device="cuda", overrides=(), requests=4, hi=300):
           "logits_max_abs_err_vs_dense": logit_err, "logits_tol": 1e-3})
 
 
-def phase_generate_cli(device="cuda", overrides=()):
+def phase_generate_cli(device="cuda", overrides=(), max_dec_len=16):
     """``cli.generate_main`` on the recipe as a user calls it (bf16,
-    sampling): it returns a string."""
+    sampling): it returns a string, and its ``max_dec_len`` forwards (the
+    prefill, then one decode step each) launched kernel 1 once a layer
+    (not on ``mma``) and kernel 2 once a layer and step, and with
+    ``MOE_KNOBS`` kernel 8 twice a layer and forward
+    (:func:`check_moe_forward_counts`); the counts zeroed just before the call
+    and read just after."""
     from paddlefleetx_tpu_torch import cli
-    argv = ["-c", CONFIG, "-o", "Generation.max_dec_len=16", "--text",
-            "Historia est vitae magistra"]
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    argv = ["-c", CONFIG, "-o", f"Generation.max_dec_len={max_dec_len}",
+            "--text", "Historia est vitae magistra"]
     if device != "cuda":
         argv += ["--device", device]
     for o in overrides:
         argv += ["-o", o]
+    mcfg = get_config(CONFIG, list(overrides)).Model
+    layers = mcfg.num_layers
+    reset_counts()
     text = cli.generate_main(argv)
+    counts = read_counts()
     if not isinstance(text, str):
         raise AssertionError(f"generate entry point returned {type(text)}")
-    emit({"phase": "generate_cli", "chars": len(text)})
+    label = "generate_cli"
+    want = {"flash_attention": layers,
+            "flash_decode": (max_dec_len - 1) * layers}
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    check_fwd_routes(counts, label)
+    if mcfg.get("moe_num_experts", 0):
+        check_moe_forward_counts(counts, max_dec_len, layers, label)
+    emit({"phase": label, "chars": len(text), "launches": {
+        **got, "grouped_matmul": counts["grouped_matmul"]},
+        "launches_by_route": {
+            "flash_attention": counts["flash_attention_routes"],
+            "grouped_matmul": counts["grouped_matmul_routes"]},
+        "counters": counts["counters"]})
 
 
 # -- paged and speculative serving --------------------------------------
@@ -2275,19 +2315,21 @@ def server_forwards(summary) -> int:
                                       else summary["admitted"])
 
 
-def check_quant_counts(counts, layers, forwards, label):
-    """Under ``quant_execution`` every dense site (4 a layer) of every
-    forward launched kernel 7, and no site took the dequantize-then-
-    matmul route."""
+def check_quant_counts(counts, layers, forwards, label, sites=4):
+    """Under ``quant_execution`` every dense site (``sites`` a layer: 4,
+    or 2 in an MoE model, whose experts stay in the compute dtype as in
+    the JAX package) of every forward launched kernel 7, and no site
+    took the dequantize-then-matmul route."""
     c = counts["counters"]
-    want = 4 * layers * forwards
+    want = sites * layers * forwards
     if not c.get("quant/matmul", 0) == counts["quantized_matmul"] == \
             want > 0 or c.get("quant/fallback/kernel_rejected", 0):
         raise AssertionError(
             f"{label}: quant/matmul {c.get('quant/matmul')}, kernel 7 "
             f"launched {counts['quantized_matmul']}, fallbacks "
             f"{c.get('quant/fallback/kernel_rejected', 0)}; expected "
-            f"{want} (4 sites x {layers} layers x {forwards} forwards)")
+            f"{want} ({sites} sites x {layers} layers x {forwards} "
+            f"forwards)")
     check_qmm_routes(counts, label)
 
 
@@ -2304,7 +2346,8 @@ def check_int8_counts(counts, summary, layers, label, kernel, cfg):
             raise AssertionError(f"{label}: {name} {c.get(name)} for "
                                  f"{ticks} layer-ticks")
     if cfg.quant_execution != "off":
-        check_quant_counts(counts, layers, server_forwards(summary), label)
+        check_quant_counts(counts, layers, server_forwards(summary), label,
+                           sites=2 if cfg.moe_num_experts else 4)
 
 
 def serve_trace(module, label, device, spec=False, paged=True, slots=None,
@@ -2387,9 +2430,12 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
     if adapters is not None:
         check_lora_counts(counts, cfg.num_layers, server_forwards(summary),
                           label, cfg.dtype)
+    if cfg.moe_num_experts:
+        check_moe_serve_counts(counts, summary, cfg.num_layers, label)
     generated = sum(len(c.tokens) for c in completions)
     record = {
-        "phase": label, "model": "GPT-345M", "dtype": cfg.dtype,
+        "phase": label, "dtype": cfg.dtype,
+        "model": "MoE GPT 8x345M" if cfg.moe_num_experts else "GPT-345M",
         "layers": cfg.num_layers, "hidden": cfg.hidden_size,
         "kv_cache_dtype": cfg.kv_cache_dtype,
         "quant_execution": cfg.quant_execution,
@@ -3429,6 +3475,213 @@ def phase_train_moe_parity(device="cuda", overrides=(), batch=2,
     return record
 
 
+# -- MoE serving: the 8x345M model behind every server mode ------------
+
+#: the 8x345M recipe's experts (``pretrain_moe_gpt_8x345M_ep8.yaml``) on
+#: the generation recipe, whose Model section is otherwise the MoE
+#: recipe's: 24 layers, hidden 1024, 16 heads, ffn 4096, vocab 50304
+MOE_KNOBS = ("Model.moe_num_experts=8", "Model.moe_top_k=2",
+             "Model.moe_capacity_factor=1.25",
+             "Model.moe_dispatch=sort_pallas")
+#: kernel 8 launches a layer and forward of the serving path (fc1, fc2)
+GMM_SERVE_PER_LAYER = 2
+#: kernel 8 at the serving forwards' shapes: (name, batch rows, tokens
+#: a row): the 16-slot decode tick, the verify window of 5 tokens, a
+#: paged prefill chunk of 256 tokens, and the contiguous admissions of
+#: the headline trace's prompts (16..384 tokens), one prompt a forward
+#: at its bucket: C 5 and 10 on ``split``, 20 and 40 on ``mma``, 80 and
+#: 160 on ``wgmma``
+GMM_SERVE = (("decode", 16, 1), ("verify", 16, 5), ("chunk", 1, 256),
+             ("bucket16", 1, 16), ("bucket32", 1, 32), ("bucket64", 1, 64),
+             ("bucket128", 1, 128), ("bucket256", 1, 256),
+             ("bucket512", 1, 512))
+#: the expert GEMMs of the 8x345M model as (call, K, N)
+GMM_SERVE_CALLS = (("fc1", 1024, 4096), ("fc2", 4096, 1024))
+
+
+def serve_groups(rows, s, experts=8, top_k=2, factor=1.25, seed=0):
+    """``(groups, empty)`` of one serving forward's grouped GEMM: ``G =
+    experts * rows`` groups in the (expert, row) order of
+    ``MoEMLP._expert_ffn``, C the capacity of ``s`` tokens, and the
+    groups no token chose: each token picks ``top_k`` distinct experts
+    (seeded) among all but the last, which is planted empty so that
+    every shape holds an empty group to zeros."""
+    import math
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    live = set()
+    for row in range(rows):
+        for _ in range(s):
+            for e in rng.choice(experts - 1, top_k, replace=False):
+                live.add(int(e) * rows + row)
+    c = max(1, math.ceil(top_k * s * factor / experts))
+    return ({"G": experts * rows, "Gw": experts, "C": c},
+            tuple(g for g in range(experts * rows) if g not in live))
+
+
+def phase_kernel_gmm_serving(device="cuda", shapes=GMM_SERVE,
+                             calls=GMM_SERVE_CALLS, experts=8):
+    """Kernel 8 (bf16) at the MoE serving forwards' shapes, fc1 and fc2
+    each (:func:`gmm_case`: against the plain version, the empty groups
+    exact zeros, bit-equal when launched again, the route from the
+    counts, timed beside the plain version, the ``mma`` route, its bound
+    and ``torch.bmm`` over ``[8, rows C, K] @ [8, K, N]``, the same
+    weight bytes); returns the cases, led by the decode tick's fc1."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
+    cases = []
+    seed = 950
+    for name, rows, s in shapes:
+        groups, empty = serve_groups(rows, s, experts, seed=seed)
+        for call, k, n in calls:
+            case = gmm_case(gmm, torch, torch.bfloat16, call, k, n, seed,
+                            device, groups, empty)
+            case["serving"] = name
+            cases.append(case)
+            emit({"phase": "kernel_gmm_serving", **case})
+            seed += 1
+    return cases
+
+
+def check_moe_serve_counts(counts, summary, layers, label):
+    """The check of :func:`check_moe_forward_counts` over a server run's
+    forwards (a tick, an admission or a prefill chunk each)."""
+    check_moe_forward_counts(counts, server_forwards(summary), layers,
+                             label)
+
+
+def check_moe_forward_counts(counts, forwards, layers, label):
+    """Each of ``forwards`` MoE forwards launched kernel 8
+    ``GMM_SERVE_PER_LAYER`` times a layer, each launch counted under one
+    route, and routed every block on ``sort_pallas``; kernel 9 never
+    ran, and neither another lowering nor a ``moe/fallback`` counter
+    fired."""
+    want = GMM_SERVE_PER_LAYER * layers * forwards
+    routes = counts["grouped_matmul_routes"]
+    if counts["grouped_matmul"] != want or want == 0 or \
+            sum(routes.values()) != want or counts["grouped_matmul_dw"]:
+        raise AssertionError(
+            f"{label}: kernel 8 launched {counts['grouped_matmul']} times "
+            f"(by route {routes}), kernel 9 {counts['grouped_matmul_dw']}; "
+            f"expected {want} ({GMM_SERVE_PER_LAYER} x {layers} layers x "
+            f"{forwards} forwards) and 0")
+    c = counts["counters"]
+    if c.get("moe/sort_pallas", 0) != layers * forwards or \
+            c.get("moe/sort", 0) or c.get("moe/einsum", 0) or \
+            [k for k in c if k.startswith("moe/fallback/")]:
+        raise AssertionError(f"{label}: moe counters {c}")
+
+
+def phase_serve_moe(device="cuda", overrides=(), requests=None):
+    """The 8x345M MoE model at full width (24 layers, hidden 1024, 8
+    experts, top-2, capacity factor 1.25, ``sort_pallas``, bf16, weights
+    from ``Global.seed``) behind every server mode, on the headline
+    trace (32 requests on 16 slots; ``requests`` cuts it to its first
+    ones): the contiguous server (16
+    slots), the paged one (65-page pool), the paged speculative one, and
+    the paged server with both int8 knobs (the 122-page int8 pool);
+    each arm's counts zeroed just before its measured run and read just
+    after (:func:`check_moe_serve_counts`: kernel 8 twice a layer and
+    forward, by route; the arm's attention kernels and, under the int8
+    knobs, kernel 7 at the two attention sites). Returns ``({arm:
+    record}, module)``, the bf16 module for the profile."""
+    hl = HEADLINE
+    dec = f"Generation.max_dec_len={hl['max_dec_len']}"
+    module = serving_module(device, [*MOE_KNOBS, dec, *overrides])
+    cfg = module.model_config
+    runs = {"contiguous": serve_trace(module, "serve_moe", device,
+                                      paged=False, requests=requests,
+                                      warm=4)}
+    runs["paged"] = serve_trace(module, "serve_moe", device,
+                                requests=requests, warm=False)
+    runs["paged_spec"] = serve_trace(module, "serve_moe", device, spec=True,
+                                     requests=requests, warm=False)
+    rate = runs["paged_spec"]["spec_accept_rate"]
+    if not 0.0 <= rate <= SPEC_ACCEPT_LIMIT:
+        raise AssertionError(f"serve_moe paged_spec accepted {rate:.4f} of "
+                             f"its drafts, over {SPEC_ACCEPT_LIMIT}")
+    int8 = serving_module(device, [*MOE_KNOBS, *INT8_KNOBS, dec,
+                                   *overrides])
+    pages, _ = int8_pool_pages(cfg, hl["pool_pages"], hl["page"])
+    runs["int8"] = serve_trace(int8, "serve_moe", device, pool_pages=pages,
+                               requests=requests, warm=4)
+    del int8
+    emit({"phase": "serve_moe", "model": "MoE GPT 8x345M",
+          "experts": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
+          "capacity_factor": cfg.moe_capacity_factor,
+          "dispatch": cfg.moe_dispatch, "layers": cfg.num_layers,
+          "requests": requests or hl["requests"],
+          "arms": {arm: {k: r.get(k) for k in (
+              "paged", "spec", "kv_cache_dtype", "quant_execution",
+              "decode_tokens_per_s", "e2e_tokens_per_s", "tick_p50_ms",
+              "tick_p99_ms", "ttft_p50_ms", "decode_ticks", "forwards",
+              "peak_mem_gib")} | {
+              "grouped_matmul": r["launches"]["grouped_matmul"],
+              "grouped_matmul_routes":
+              r["launches_by_route"]["grouped_matmul"]}
+              for arm, r in runs.items()}})
+    return runs, module
+
+
+def phase_parity_moe(device="cuda", overrides=(), requests=4,
+                     max_dec_len=32):
+    """The 8x345M model at full width in fp32: the greedy rows served
+    through kernel 8 (``sort_pallas``, its ``f32`` route) against the
+    same weights under ``sort`` (``torch.bmm``, the same function),
+    contiguous and paged, token for token up to a near tie
+    (:func:`compare_rows`); each routing group is the server's in both,
+    so the two differ only in the order of the expert GEMMs' sums."""
+    import dataclasses
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.models.gpt.model import build_model
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTGenerationModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    hl = HEADLINE
+    module = GPTGenerationModule(get_config(CONFIG, [
+        "Engine.mix_precision.use_pure_fp16=False",
+        "Generation.decode_strategy=greedy_search",
+        f"Generation.max_dec_len={max_dec_len}", *MOE_KNOBS, *overrides]),
+        device=device)
+    cfg, gcfg, model = module.model_config, module.generation_cfg, \
+        module.model
+    if cfg.dtype != "float32" or cfg.moe_dispatch != "sort_pallas":
+        raise AssertionError(f"parity_moe: {cfg.dtype} {cfg.moe_dispatch}")
+    plain = build_model(dataclasses.replace(cfg, moe_dispatch="sort"),
+                        model.word_embeddings.device,
+                        state_dict=model.state_dict())
+    prompts = headline_prompts(cfg.vocab_size, requests, hl["lo"], hl["hi"],
+                               hl["seed"])
+    eos = gcfg.eos_token_id
+    record = {"phase": "parity_moe", "dtype": cfg.dtype,
+              "requests": requests, "max_dec_len": max_dec_len,
+              "prompt_lens": [len(p) for p in prompts]}
+    for arm, kw in (("contiguous", {}),
+                    ("paged", {"page_size": hl["page"],
+                               "pool_pages": hl["pool_pages"],
+                               "prefill_chunk_pages":
+                               hl["prefill_chunk_pages"]})):
+        rows = {}
+        for name, m in (("kernel", model), ("bmm", plain)):
+            server = GenerationServer(m, gcfg, num_slots=requests, **kw)
+            reset_counts()
+            rows[name] = [c.tokens for c in server.run(prompts)]
+            counts = read_counts()
+            if name == "kernel":
+                check_moe_serve_counts(counts, server.summary(),
+                                       cfg.num_layers, f"parity_moe_{arm}")
+                record[f"{arm}_routes"] = counts["grouped_matmul_routes"]
+            elif counts["grouped_matmul"] or \
+                    counts["counters"].get("moe/sort_pallas", 0):
+                raise AssertionError(f"parity_moe_{arm}: the sort model "
+                                     f"launched kernel 8")
+        mm = compare_rows(f"parity_moe_{arm}", model, prompts,
+                          rows["kernel"], rows["bmm"], eos)
+        record[f"{arm}_rows_equal"] = requests - len(mm)
+        record[f"{arm}_near_ties"] = len(mm)
+    emit(record)
+    return record
+
+
 # -- LoRA: kernel 7's dx route, kernel 8 at the bank shapes, serving ----
 
 #: M of kernel 7's dx route: a 16-row batch and the gradient phase's 4 x
@@ -4164,15 +4417,19 @@ def lora_rows(dx_cases, grad) -> list:
         "cases": len(dx_cases)}]
 
 
-def gmm_rows(cases, train_moe, lora=None) -> list:
+def gmm_rows(cases, train_moe, lora=None, serving=None) -> list:
     """The kernels line's rows of kernels 8 and 9: the main path's case
     (bf16 fc1, forward and dw) with the worst errors over all their
     cases, the times at every shape, and the launches of ``train_moe``
     (counted from zero just before it); with ``lora``, ``(LoRA cases,
     their deltas, serve_lora, grad_int8_lora)``, also the bank shapes'
     errors and times and the launches of the serving arms and of the
-    full-depth gradient pass."""
+    full-depth gradient pass; with ``serving``, ``(kernel 8's serving
+    cases, serve_moe's arms)``, also kernel 8's errors and times at the
+    MoE serving shapes (``serving``) and the arms' launches by
+    route."""
     lora_cases, deltas, serve_lora, grad = lora or ([], [], None, None)
+    serve_cases, serve_moe = serving or ([], {})
     cases = cases + lora_cases
     rows = []
 
@@ -4184,10 +4441,14 @@ def gmm_rows(cases, train_moe, lora=None) -> list:
             ("grouped_matmul_dw",
              "paddlefleetx_tpu/ops/pallas/grouped_matmul.py:76")):
         mine = [c for c in cases if c["kernel"] == name]
+        held = mine + [c for c in serve_cases if c["kernel"] == name]
         head = mine[0]
-        err = max(c["max_abs_err"] for c in mine)
+        err = max(c["max_abs_err"] for c in held)
         by_path = {"train_moe": train_moe["launches"][name]}
         route_recs = [train_moe]
+        for arm, rec in serve_moe.items():
+            by_path[f"serve_moe_{arm}"] = rec["launches"].get(name, 0)
+            route_recs.append(rec)
         if serve_lora is not None:
             for arm, rec in serve_lora["arms"].items():
                 by_path[f"serve_lora_{arm}"] = rec["launches"].get(name, 0)
@@ -4206,11 +4467,11 @@ def gmm_rows(cases, train_moe, lora=None) -> list:
             "launches_by_path": by_path,
             "kernel_route": head["route"], "launches_by_route": by_route,
             "max_abs_err": err, "max_err": err,
-            "tol": {c["dtype"]: c["tol"] for c in mine},
-            "max_rel_l2": max(c["rel_l2"] for c in mine),
-            "min_rel_l2_planted": min(c["rel_l2_planted"] for c in mine),
+            "tol": {c["dtype"]: c["tol"] for c in held},
+            "max_rel_l2": max(c["rel_l2"] for c in held),
+            "min_rel_l2_planted": min(c["rel_l2_planted"] for c in held),
             "tol_rel_l2": TOL_REL_L2, "normwise_per": "64 x 64 output tile",
-            "empty_exact_zero": all(c["empty_exact_zero"] for c in mine),
+            "empty_exact_zero": all(c["empty_exact_zero"] for c in held),
             "ms": head["ms"], "kernel_ms": head["ms"],
             "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
             "ms_prev_design": head["ms_prev_design"],
@@ -4228,6 +4489,15 @@ def gmm_rows(cases, train_moe, lora=None) -> list:
                                   "bound_ms", "bound_by")}
                 for c in mine},
             "cases": len(mine)})
+    if serve_cases:
+        rows[0]["serving"] = {f"{c['serving']}_{c['call']}": {
+            k: c[k] for k in ("G", "C", "K", "N", "live_groups", "route",
+                              "ms", "ms_prev_design", "call_ms", "plain_ms",
+                              "library_ms", "bound_ms", "bound_by",
+                              "max_abs_err", "rel_l2")}
+            for c in serve_cases}
+        rows[0]["serving_library_computes"] = serve_cases[0][
+            "library_computes"]
     if deltas:
         rows[0]["lora_delta"] = {f"{d['site']}_C{d['C']}": {
             k: d[k] for k in ("pair_ms", "gather_einsum_ms")}
@@ -4533,10 +4803,12 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
     if int8 is not None:
         rows += int8_rows(*int8)
     if moe is not None:
-        # lora: (dx cases, grad_int8_lora, kernel 8 / 9 bank cases, the
-        # deltas, serve_lora)
-        rows += gmm_rows(*moe, lora=None if lora is None else (
-            lora[2], lora[3], lora[4], lora[1]))
+        # moe: (kernel 8 / 9 cases, train_moe[, (kernel 8's serving
+        # cases, serve_moe's arms)]); lora: (dx cases, grad_int8_lora,
+        # kernel 8 / 9 bank cases, the deltas, serve_lora)
+        rows += gmm_rows(moe[0], moe[1], lora=None if lora is None else (
+            lora[2], lora[3], lora[4], lora[1]), serving=moe[2] if
+            len(moe) > 2 else None)
     if lora is not None:
         rows += lora_rows(lora[0], lora[1])
     return {"kernels": rows}
@@ -4562,6 +4834,7 @@ def main() -> int:
     qmm_cases = phase_kernel_qmm()
     qmm_dx_cases = phase_kernel_qmm_dx()
     gmm_cases = phase_kernel_gmm()
+    gmm_serve = phase_kernel_gmm_serving()
     gmm_lora = phase_kernel_gmm_lora()
     fwd_drop = phase_kernel1_dropout()
     bwd = phase_backward()
@@ -4603,6 +4876,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_moe_parity()
     torch.cuda.empty_cache()
+    serve_moe, module = phase_serve_moe()
+    phase_profile_paged(module, suffix="_moe")
+    del module
+    torch.cuda.empty_cache()
+    phase_serve_cli(overrides=MOE_KNOBS)
+    phase_generate_cli(overrides=MOE_KNOBS)
+    torch.cuda.empty_cache()
+    phase_parity_moe()
+    torch.cuda.empty_cache()
     serve_lora, module = phase_serve_lora()
     phase_profile_lora(module)
     del module
@@ -4618,7 +4900,7 @@ def main() -> int:
     emit(kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window,
                       serve_paged, spec,
                       (dec8, window8, qmm_cases, int8_runs),
-                      (gmm_cases, train_moe),
+                      (gmm_cases, train_moe, (gmm_serve, serve_moe)),
                       (qmm_dx_cases, grad, *gmm_lora, serve_lora)))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -67,11 +67,20 @@ Counted ``serving/adapter_{hits,misses,evictions}`` with the
 ``serving_adapter_load`` / ``serving_adapter_evict`` events belong to
 its event recorder, which is not ported.
 
+MoE models (``moe_num_experts > 0``) serve in every mode above. Each
+forward routes each batch row as its own group, whose expert capacity
+comes from the forward's sequence length, as in the JAX package: a
+contiguous admission routes its prompt at its bucket's length, a paged
+one chunk by chunk (a preempted request's re-prefill is a new group), a
+decode tick one token a slot, a verify tick the slot's window. So an
+MoE model's rows may differ between modes (they do in the JAX package),
+while slot count and admission order leave them unchanged.
+
 Not ported yet (asking for them raises ``NotImplementedError``): the
 host KV tier (``host_pool_bytes``), device-resident decode loops
-(``device_loop_ticks > 1``), MoE models, deadlines, queue shedding,
-SIGTERM drain, fault injection, KV export / import, the prefix store and
-the event trace.
+(``device_loop_ticks > 1``), deadlines, queue shedding, SIGTERM drain,
+fault injection, KV export / import, the prefix store and the event
+trace.
 """
 
 from __future__ import annotations
@@ -185,10 +194,6 @@ class GenerationServer:
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         cfg = model.config
-        if cfg.moe_num_experts:
-            raise NotImplementedError(
-                "serving an MoE model is not ported: the port trains MoE "
-                "models; their decode path is a later slice")
         self.paged = bool(page_size or pool_pages or cfg.kv_page_size)
         if self.paged:
             page_size = int(page_size or cfg.kv_page_size)

@@ -5,11 +5,10 @@ Same fields, defaults and ``from_config`` as the JAX package, so one
 YAML ``Model`` section builds either model. The knobs whose code paths
 this port does not have yet raise ``NotImplementedError`` at
 construction instead of being ignored: context parallelism and
-unfused q/k/v projections. The MoE knobs act on the training path
-(``models/gpt/moe.py``) and are validated as in the JAX package
-(``1 <= moe_top_k <= moe_num_experts``, ``moe_capacity_factor > 0``, a
-known ``moe_dispatch``); serving an MoE model is a
-later slice (``GenerationServer`` and ``generate()`` raise). The LoRA
+unfused q/k/v projections. The MoE knobs act on the training and the
+serving paths (``models/gpt/moe.py``) and are validated as in the JAX
+package (``1 <= moe_top_k <= moe_num_experts``, ``moe_capacity_factor >
+0``, a known ``moe_dispatch``). The LoRA
 knobs (``lora_rank``, ``lora_num_adapters``, ``lora_alpha``) act: each
 dense site carries a bank of adapters (``model.py::LoRADelta``), with
 the JAX package's validation word for word (no negative rank or alpha,

@@ -7,8 +7,12 @@ the JAX package's ``models/gpt/generation.py``): the lockstep
   flash forward kernel (pad keys masked by a ``[b, 1, 1, prompt]``
   bias), then decodes every row at one shared cache index through
   ``flash_decode`` (shared offset + the ``[b, 1, 1, capacity]``
-  validity bias). Greedy and sampling; beam search and MoE models are
-  not ported yet.
+  validity bias). Greedy and sampling; beam search is not ported yet.
+  An MoE model routes each row of the batch as one group, its pads
+  first, as the JAX ``generate()`` does: its prefill takes the JAX
+  package's cached-prefill mask whole, as one ``[b, 1, prompt,
+  prompt]`` bias (:func:`prefill_bias`), so that its pad rows are the
+  JAX rows.
 - The slot primitives keep a persistent ``[slots, ...]`` cache whose
   rows are independent requests at independent lengths:
   :func:`prefill_into_slots` admits requests into free rows (right
@@ -32,7 +36,11 @@ request's sample depends on neither its slot nor its neighbours; the
 verify tick's accept test draws its uniform from the same keys with a
 salt (:func:`accept_uniform`). The numbers differ from the JAX
 package's ``jax.random`` streams; greedy decoding is token-exact
-against it. The cache is updated in place.
+against it. The cache is updated in place. Every function here runs
+under ``torch.inference_mode`` (serving needs no autograd, and the
+mode drops its bookkeeping from each of a tick's launches); the slot
+state it returns holds inference tensors, which only these functions
+write.
 """
 
 from __future__ import annotations
@@ -148,6 +156,24 @@ def _decode_bias(valid: torch.Tensor) -> torch.Tensor:
                                                                 None, :]
 
 
+def prefill_bias(valid: torch.Tensor) -> torch.Tensor:
+    """The mask of the lockstep prefill over a left-padded batch as one
+    additive fp32 ``[b, 1, s, s]`` bias, from the ``[b, s]`` validity of
+    its keys: the JAX package's cached prefill (its dense route) fills
+    the causally masked scores with ``NEG_INF`` and then adds the pad
+    bias, so a pad query, whose causal keys are all pads, spreads its
+    weight evenly over its earlier pads and every real key, and that
+    row then takes expert capacity in an MoE block. The same sums here
+    (``s + NEG_INF`` rounds to ``NEG_INF`` in fp32) make the port's pad
+    rows the JAX rows; a real query's masked keys weigh 0 either way.
+    The prefill takes it with ``causal=False``."""
+    s = valid.shape[-1]
+    live = torch.ones((s, s), dtype=torch.bool,
+                      device=valid.device).tril()
+    fill = torch.where(live, 0.0, NEG_INF).to(torch.float32)
+    return fill + _decode_bias(valid)
+
+
 def _processed(logits: torch.Tensor, appeared: torch.Tensor, dec_count,
                gen_cfg: GenerationConfig) -> torch.Tensor:
     """Repetition penalty over ``appeared``, then min-length over
@@ -202,7 +228,7 @@ def _last_logits(model: GPTForPretraining, hidden: torch.Tensor
     return tied_logits(hidden, model.word_embeddings).float()
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def generate(model: GPTForPretraining, input_ids, attention_mask,
              gen_cfg: GenerationConfig, seed: int = 0) -> torch.Tensor:
     """Lockstep generation: ``[b * num_return_sequences, max_dec_len]``
@@ -220,10 +246,6 @@ def generate(model: GPTForPretraining, input_ids, attention_mask,
     if gen_cfg.decode_strategy == "beam_search":
         raise NotImplementedError("beam search is not ported yet")
     cfg: GPTConfig = model.config
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "generating with an MoE model is not ported: the port trains "
-            "MoE models; their decode path is a later slice")
     dev = model.word_embeddings.device
     ids = torch.as_tensor(np.asarray(input_ids), device=dev).long()
     mask = torch.ones_like(ids) if attention_mask is None else \
@@ -245,9 +267,13 @@ def generate(model: GPTForPretraining, input_ids, attention_mask,
                         device=dev)
     valid[:, :prompt_len] = real
     cache = init_kv_cache(cfg, b, dev)
+    # a dense model's pad rows feed no real row; an MoE model's take
+    # expert capacity, so they must be the JAX rows
+    moe = bool(cfg.moe_num_experts)
+    bias = prefill_bias if moe else _decode_bias
     hidden = model.gpt(ids, position_ids,
-                       attn_bias=_decode_bias(valid[:, :prompt_len]),
-                       cache=cache)
+                       attn_bias=bias(valid[:, :prompt_len]), cache=cache,
+                       causal=not moe)
     logits = _last_logits(model, hidden[:, -1])
     rows = torch.arange(b, device=dev)
     appeared = torch.zeros((b, cfg.vocab_size), dtype=torch.bool,
@@ -325,7 +351,7 @@ def init_slot_cache(model: GPTForPretraining, num_slots: int) -> KVCache:
                          model.word_embeddings.device)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def prefill_into_slots(model: GPTForPretraining, cache: KVCache,
                        state: SlotState, slot_ids: Sequence[int],
                        input_ids: torch.Tensor, true_lengths: Sequence[int],
@@ -362,7 +388,7 @@ def prefill_into_slots(model: GPTForPretraining, cache: KVCache,
         state.rejected[slot] = -1
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def decode_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
                 gen_cfg: GenerationConfig, seed: int = 0,
                 page_table: Optional[torch.Tensor] = None,
@@ -420,7 +446,7 @@ def accept_uniform(seed: int, nonce: int, step: int) -> float:
         float(1 << 53)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def verify_step(model: GPTForPretraining, cache: KVCache, state: SlotState,
                 drafts: Sequence[Sequence[int]], gen_cfg: GenerationConfig,
                 seed: int = 0, page_table: Optional[torch.Tensor] = None,
@@ -546,7 +572,7 @@ def init_page_pool(model: GPTForPretraining, cfg: GPTConfig) -> KVCache:
     return init_kv_pool(cfg, model.word_embeddings.device)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def prefill_chunk_paged(model: GPTForPretraining, pool: KVCache,
                         input_chunk: torch.Tensor,
                         chunk_start: torch.Tensor,
@@ -581,7 +607,7 @@ def prefill_chunk_paged(model: GPTForPretraining, pool: KVCache,
     return _last_logits(model, hidden)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def copy_kv_pages(pool: KVCache, src: Sequence[int],
                   dst: Sequence[int]) -> None:
     """Copy physical pages ``src -> dst`` in every layer's K and V pool
@@ -596,6 +622,7 @@ def copy_kv_pages(pool: KVCache, src: Sequence[int],
             t[d] = t[s]
 
 
+@torch.inference_mode()
 def activate_slot(state: SlotState, slot: int, length: int, dec_count: int,
                   nonce: int, appeared_row: torch.Tensor,
                   last_logits_row: torch.Tensor, rejected: int = -1) -> None:

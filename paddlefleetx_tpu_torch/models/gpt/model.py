@@ -40,7 +40,9 @@ verify window), a paged chunk (``chunk_start``) drops a page-aligned
 chunk straight into its pages. Prefill attends over the prompt's fresh
 q/k/v through the flash forward kernel (``attention/flash``): with
 query offset 0 every key past the prompt is causally masked, so this
-equals the JAX package's dense attention over the whole capacity.
+equals the JAX package's dense attention over the whole capacity. A
+prefill asked for with ``causal=False`` (an MoE model's lockstep
+``generate()``) takes its whole mask from a ``[b, 1, s, s]`` bias.
 Decode and verify attend over the cache through the decode kernels
 (``ops/attention.py`` lists the routes and their counters); a paged
 prefill chunk takes the JAX package's gather + dense route. Under the
@@ -332,7 +334,8 @@ class MultiHeadAttention(nn.Module):
                 decode_offset: Union[int, torch.Tensor, None],
                 dropout_seed: Optional[int] = None,
                 paged: Optional[PagedWrite] = None,
-                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                adapter_ids: Optional[torch.Tensor] = None,
+                causal: bool = True) -> torch.Tensor:
         """Attention of ``x [b, s, hidden]``.
 
         Without ``kv``: causal attention over x itself, with the
@@ -340,7 +343,8 @@ class MultiHeadAttention(nn.Module):
         None: none). With ``kv`` and neither ``decode_offset`` nor
         ``chunk_start``: a prefill that attends over x and writes its
         keys/values at positions ``0..s-1`` of cache rows
-        ``cache_rows`` (rows ``0..b-1`` when None). With
+        ``cache_rows`` (rows ``0..b-1`` when None); causal, or with
+        ``causal`` False masked by ``attn_bias`` alone. With
         ``decode_offset`` (an int for every row, or a ``[b]`` int32
         tensor per row): write the ``s`` tokens at positions
         ``offset .. offset + s - 1`` (clipped to the capacity) and
@@ -394,7 +398,8 @@ class MultiHeadAttention(nn.Module):
                 v = fa.dequantize_cache(vq, vs).to(v.dtype)
             with _site("attn" if use_flash else "core_attn"):
                 out = dot_product_attention(
-                    q, k, v, attn_bias, causal=True, use_flash=use_flash,
+                    q, k, v, attn_bias, causal=causal or kv is None,
+                    use_flash=use_flash,
                     dropout_rate=rate,
                     dropout_seed=dropout_seed if rate > 0.0 else None)
             if kv is not None:
@@ -513,11 +518,13 @@ class TransformerDecoderLayer(nn.Module):
 
     def forward(self, x, attn_bias=None, kv=None, cache_rows=None,
                 decode_offset=None, dropout_seed=None, paged=None,
-                adapter_ids=None):
-        """One block; the cache arguments and ``adapter_ids`` are
-        :meth:`MultiHeadAttention.forward`'s, ``dropout_seed`` the
-        block's (None: no dropout). Returns the block's output, and with
-        ``moe_num_experts > 0`` the pair ``(output, router aux loss)``."""
+                adapter_ids=None, causal=True, need_aux=True):
+        """One block; the cache arguments, ``adapter_ids`` and
+        ``causal`` are :meth:`MultiHeadAttention.forward`'s,
+        ``dropout_seed`` the block's (None: no dropout). Returns the
+        block's output, and with ``moe_num_experts > 0`` the pair
+        ``(output, router aux loss)``, the loss not computed (0) unless
+        ``need_aux``."""
         drop = dropout_seed is not None
         rate = self.cfg.hidden_dropout_prob
 
@@ -525,11 +532,12 @@ class TransformerDecoderLayer(nn.Module):
             return fold_seed(dropout_seed, site) if drop else None
 
         y = self.self_attn(self.norm1(x), attn_bias, kv, cache_rows,
-                           decode_offset, seed(0), paged, adapter_ids)
+                           decode_offset, seed(0), paged, adapter_ids,
+                           causal)
         x = x + hidden_dropout(y, rate, seed(1))
         if self.cfg.moe_num_experts:
             y, aux = self.moe_mlp(self.norm2(x),
-                                  seed(self.moe_mlp.DROPOUT_SITE))
+                                  seed(self.moe_mlp.DROPOUT_SITE), need_aux)
             return x + hidden_dropout(y, rate, seed(2)), aux
         lora = self.cfg.lora_rank
         with _site("mlp1"):
@@ -589,7 +597,8 @@ class GPTModel(nn.Module):
                 page_table: Optional[torch.Tensor] = None,
                 chunk_start: Optional[torch.Tensor] = None,
                 return_aux: bool = False,
-                adapter_ids: Optional[torch.Tensor] = None):
+                adapter_ids: Optional[torch.Tensor] = None,
+                causal: bool = True):
         """Hidden states ``[b, s, hidden]`` after the final norm (cache
         arguments as in :meth:`MultiHeadAttention.forward`; ``cache``
         is one ``(k, v)`` pair per layer, the page pools with a
@@ -601,8 +610,11 @@ class GPTModel(nn.Module):
         gradients enabled each block runs under activation
         checkpointing. With ``return_aux`` the pair ``(hidden states, the
         MoE router aux loss summed over the blocks)``, the loss None for
-        a dense model. ``adapter_ids [b]`` (int bank rows, 0 the base
-        model) select each row's LoRA adapter; None computes no delta."""
+        a dense model; without it the blocks compute no router loss.
+        ``adapter_ids [b]`` (int bank rows, 0 the base model) select each
+        row's LoRA adapter; None computes no delta. ``causal`` False
+        (a prefill with a cache only) leaves the whole mask to a ``[b,
+        1, s, s]`` ``attn_bias``."""
         cfg = self.cfg
         s = input_ids.shape[-1]
         if position_ids is None:
@@ -622,12 +634,13 @@ class GPTModel(nn.Module):
             page_table, s, cache[0][0].shape[2],
             cfg.cache_capacity, decode_offset, chunk_start)
         aux = x.new_zeros((), dtype=torch.float32) \
-            if cfg.moe_num_experts else None
+            if cfg.moe_num_experts and return_aux else None
         for i, layer in enumerate(self.decoder):
             seed = fold_seed(dropout_seed, i + 1) if drop else None
             if recompute:
                 x = ckpt.checkpoint(layer, x, attn_bias, None, None, None,
                                     seed, None, adapter_ids,
+                                    need_aux=return_aux,
                                     use_reentrant=False,
                                     preserve_rng_state=False,
                                     context_fn=self._context_fn)
@@ -635,10 +648,11 @@ class GPTModel(nn.Module):
                 x = layer(x, attn_bias,
                           cache[i] if cache is not None else None,
                           cache_rows, decode_offset, seed, paged,
-                          adapter_ids)
-            if aux is not None:
+                          adapter_ids, causal, return_aux)
+            if cfg.moe_num_experts:
                 x, layer_aux = x
-                aux = aux + layer_aux
+                if aux is not None:
+                    aux = aux + layer_aux
         x = self.final_norm(x)
         return (x, aux) if return_aux else x
 
@@ -669,12 +683,14 @@ class GPTForPretraining(nn.Module):
         """Logits ``[b, s, vocab]``, with ``return_aux`` the pair
         ``(logits, MoE aux loss)`` (arguments as in
         :meth:`GPTModel.forward`)."""
-        x, aux = self.gpt(input_ids, position_ids, attn_bias, cache,
-                          cache_rows, decode_offset, dropout_seed,
-                          page_table, chunk_start, return_aux=True,
-                          adapter_ids=adapter_ids)
-        logits = tied_logits(x, self.word_embeddings)
-        return (logits, aux) if return_aux else logits
+        x = self.gpt(input_ids, position_ids, attn_bias, cache,
+                     cache_rows, decode_offset, dropout_seed, page_table,
+                     chunk_start, return_aux=return_aux,
+                     adapter_ids=adapter_ids)
+        if return_aux:
+            x, aux = x
+            return tied_logits(x, self.word_embeddings), aux
+        return tied_logits(x, self.word_embeddings)
 
 
 def masked_nll_sums(logits: torch.Tensor, labels: torch.Tensor,

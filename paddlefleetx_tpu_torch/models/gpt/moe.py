@@ -16,6 +16,15 @@ lowerings:
   runs kernel 8 for dx and kernel 9 for dw), which gives zeros for the
   (expert, row) groups no token was routed to.
 
+The layer takes whatever ``[b, s, h]`` a forward gives it, and each
+batch row is one routing group with the capacity of ``s`` tokens
+(:func:`expert_capacity`): a training microbatch's rows, and in serving
+a contiguous admission ``[n, bucket, h]``, a paged prefill chunk ``[1,
+chunk, h]``, a decode tick ``[slots, 1, h]`` or a verify window
+``[slots, W, h]``, as the JAX layer routes them. A forward that asks
+for no router loss (``need_aux`` False: every serving forward) skips
+it; ``y`` does not depend on it.
+
 All three keep the same dropped-token set (the positions of
 :func:`_routing_plan`) and the same parameters, with the JAX names and
 layouts: ``router_kernel [h, E]``, ``wi [E, h, m]``, ``wi_bias [E, m]``,
@@ -157,10 +166,11 @@ class MoEMLP(nn.Module):
         self.wo = nn.Parameter(torch.zeros(n_exp, m, h))
         self.wo_bias = nn.Parameter(torch.zeros(n_exp, h))
 
-    def forward(self, x: torch.Tensor, dropout_seed: Optional[int] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, dropout_seed: Optional[int] = None,
+                need_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """Route ``x [b, s, h]`` through the experts; ``dropout_seed``
-        the expert dropout's (None: none)."""
+        the expert dropout's (None: none). Without ``need_aux`` the aux
+        loss returned is 0 (not computed)."""
         cfg = self.cfg
         n_exp, k = cfg.moe_num_experts, cfg.moe_top_k
         b, s, h = x.shape
@@ -195,6 +205,8 @@ class MoEMLP(nn.Module):
             out = torch.einsum("bskh,bsk->bsh", yc.reshape(b, s, k, h),
                                gate.to(y.dtype))
         aux = probs.new_zeros(())
+        if not need_aux:
+            return out, aux
         if cfg.moe_aux_loss_weight:
             load_balance = n_exp * (aux_frac * probs.mean(dim=(0, 1))).sum()
             aux = aux + cfg.moe_aux_loss_weight * load_balance

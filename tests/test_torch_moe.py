@@ -311,8 +311,9 @@ def test_converter_round_trip_is_bit_exact():
 
 
 def test_refusals():
-    """``ep_degree > 1``, LoRA beside MoE, bad MoE knobs, and serving an
-    MoE model raise."""
+    """``ep_degree > 1``, LoRA beside MoE and bad MoE knobs raise;
+    serving an MoE model does not (``test_torch_moe_serving*.py`` hold
+    its rows to the JAX package's)."""
     cfg = get_config(CONFIG, TINY[:-1] + ["Distributed.ep_degree=2"])
     module = GPTModule(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ep_degree"):
@@ -324,8 +325,9 @@ def test_refusals():
         with pytest.raises(ValueError):
             GPTConfig(**dict(MOE_KW, **bad))
     model = build_model(GPTConfig(**MOE_KW), torch.device("cpu"))
-    gen = GenerationConfig(max_dec_len=4, decode_strategy="greedy_search")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        GenerationServer(model, gen, num_slots=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        generate(model, np.zeros((1, 4), np.int64), None, gen)
+    gen = GenerationConfig(max_dec_len=4, decode_strategy="greedy_search",
+                           eos_token_id=63, pad_token_id=63)
+    done = GenerationServer(model, gen, num_slots=2).run([[1, 2, 3]])
+    assert done[0].finish_reason in ("eos", "length")
+    assert generate(model, np.zeros((1, 4), np.int64), None,
+                    gen).shape == (1, 4)
