@@ -92,6 +92,21 @@ run (``parity_lora``); the gradient of every floating leaf over an int8
 base against a CPU copy, then one full-depth forward and backward
 (``grad_int8_lora``: kernels 1, 3, 4, 7, 7's dx route, 8, 9); and the
 frozen-base fine-tune, three steps through ``cli.train_main``.
+Then offline evaluation: kernel 1 (b8 s1024, no dropout) and kernel 8
+(fc1 and fc2 at ``[64, 320, K]``, 8 rows x 8 experts, every group live)
+at the eval batch against their plain versions, SDPA and ``torch.bmm``;
+the 345M eval recipe as written through ``cli.eval_main`` on a seeded
+WikiText-style file (``eval``: kernel 1 exactly 24 a batch on
+``wgmma``, no dense attention, no backward kernel, no dropout; the same
+metrics again from a checkpoint saved by ``Engine.save`` and loaded
+under another seed), the LAMBADA cloze on a seeded ``.jsonl``
+(``eval_cloze``), the 8x345M model (``eval_moe``: kernel 8 exactly 48 a
+batch, no kernel 9, no ``moe/fallback``), the fp32 kernel paths held to
+the dense paths (``eval_parity``: each batch's NLL sum within 1e-5,
+the cloze argmax with its top-2 gap), a profile of an eval batch, dense
+and MoE (``eval_profile``), and ``Engine.predict`` with ``test_iters`` 4
+(``predict``); the ``train`` phase prints the run summary
+(``Engine.print_summary``).
 Each phase prints one JSON object per line;
 the ``kernels`` line and the card's name and power limit come before
 the last line, which is ``{"ok": true, "device": {...}}``. Any failure
@@ -1310,7 +1325,8 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
     over the transposed weight) or kernel 9 (dw) against its plain
     version (fp32 math on the same inputs), by max abs error and per 64
     x 64 output tile normwise (planted fault refused), with the planted
-    empty groups (and expert 3's dw) exactly zero, and in the fc2 calls
+    empty groups (and expert 3's dw) exactly zero where ``empty`` names
+    any, and in the fc2 calls
     the padding rows non-zero (dy is non-zero on every row); launched
     twice, the two outputs bit-identical; the route it took read from
     the counts by route; timed with its plain version, the mma kernels
@@ -1398,7 +1414,7 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
     if not torch.isfinite(out.float()).all() or err > tol:
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"max abs err {err:.3e} > {tol:.0e}")
-    if not zero.numel() or zero.abs().max() != 0:
+    if empty and (not zero.numel() or zero.abs().max() != 0):
         raise AssertionError(f"{what}: a planted empty group is not zeros")
     rel_l2, planted = _hold_tiles(out.reshape(-1, out.shape[-1]),
                                   ref.reshape(-1, ref.shape[-1]), what)
@@ -1417,7 +1433,8 @@ def gmm_case(gmm, torch, dtype, call, k, n, seed, device="cuda",
             "C": c, "K": k, "N": n, "empty_groups": list(empty),
             "live_groups": int((counts > 0).sum()),
             "max_abs_err": err, "tol": tol, "rel_l2": rel_l2,
-            "rel_l2_planted": planted, "empty_exact_zero": True,
+            "rel_l2_planted": planted,
+            "empty_exact_zero": True if empty else None,
             "bit_equal_rerun": True, "route": route,
             "ms": ms, "call_ms": call_ms, "ms_prev_design": prev_ms,
             "prev_design": f"the {prev_route} route, alone before the "
@@ -2916,8 +2933,8 @@ def phase_train(device="cuda", overrides=(), steps=30):
     try:
         over = [f"Engine.max_steps={steps}", "Engine.logging_freq=1",
                 "Engine.eval_freq=1000000", "Engine.eval_iters=1",
-                "Engine.save_load.save_steps=1000000", *TRAIN_LR,
-                *overrides]
+                "Engine.save_load.save_steps=1000000",
+                "Engine.print_summary=True", *TRAIN_LR, *overrides]
         cfg = write_train_corpus(os.path.join(tmp, "data"), over, steps)
         argv = train_argv(os.path.join(tmp, "data"),
                           os.path.join(tmp, "out"), over, device)
@@ -2955,6 +2972,8 @@ def phase_train(device="cuda", overrides=(), steps=30):
             c.get("attention/dense", 0) != 0 or \
             c.get("attention/flash", 0) != 0:
         raise AssertionError(f"train: attention counters {c}")
+    if not engine.print_summary or not engine.summary.get("tokens_per_sec"):
+        raise AssertionError(f"train: no run summary ({engine.summary})")
     costs = [h["train_cost"] for h in engine.history[1:]]
     seq = cfg.Data.Train.dataset.max_seq_len
     tokens = cfg.Global.global_batch_size * seq
@@ -2977,6 +2996,9 @@ def phase_train(device="cuda", overrides=(), steps=30):
         "model_flops_per_token": fpt,
         "mfu": flops.mfu(tokens / p50, fpt),
         "mfu_peak": "bf16 dense 989 TFLOP/s",
+        "summary": {k: engine.summary.get(k) for k in (
+            "tokens_per_sec", "mfu", "steady_mean_s_per_step",
+            "goodput_pct", "wall_total_s")},
         "first_loss": losses[0], "last_loss": losses[-1],
         "mean_first5": first5, "mean_last5": last5,
         "launches_per_step": {k: counts[k] / steps for k in (
@@ -3678,6 +3700,529 @@ def phase_parity_moe(device="cuda", overrides=(), requests=4,
                           rows["kernel"], rows["bmm"], eos)
         record[f"{arm}_rows_equal"] = requests - len(mm)
         record[f"{arm}_near_ties"] = len(mm)
+    emit(record)
+    return record
+
+
+# -- offline eval and predict --------------------------------------------
+
+EVAL_CONFIG = os.path.join(ROOT, "configs", "nlp", "gpt",
+                           "eval_gpt_345M_single_card.yaml")
+#: kernel 8 at an MoE eval batch: 8 rows, each one routing group of
+#: 1024 tokens with capacity C = ceil(2 * 1024 * 1.25 / 8) = 320, so G =
+#: 8 experts x 8 rows; at 2048 choices a row every group is live
+GMM_EVAL = {"G": 64, "Gw": 8, "C": 320}
+#: the words of the WikiText-style stand-in, with the markup the
+#: detokenizer rewrites; the recipe's ``wiki.valid.tokens`` is not in
+#: the repository
+EVAL_WORDS = ("the", "of", "and", "in", "to", "was", "a", "river", "valley",
+              "stone", "king", "season", "album", "song", "city", "north",
+              "battle", "species", "film", "church", "@-@", "@,@", "@.@",
+              ",", ".", "(", ")", '"', "'s", "N", "=", ":", ";", "\n",
+              "<unk>", "1998", "2011", "first", "new", "later")
+#: the stand-in files, in words (about 4.2 bytes, so 4.2 tokens, each):
+#: the dense eval 208 batches of 8 windows of 1024 tokens (a window every
+#: 32 tokens), the last one of 4, about 8 s on the card; the MoE eval 45,
+#: the last of 7, about 5 s; the parity phase's file a full first window
+#: and 2 batches' worth (it scores 2)
+EVAL_SIZES = {"dense": 14100, "moe": 3000, "parity": 500,
+              "cloze_lines": 36, "parity_cloze_lines": 12}
+#: eval_parity's limit on each batch's NLL sum through the kernels
+#: against the dense path (fp32; the same products summed in another
+#: order), relative
+EVAL_PARITY_RTOL = 1e-5
+
+
+def write_wiki_file(path, words, seed):
+    """A seeded WikiText-style text of ``words`` words; returns its
+    size in bytes."""
+    import numpy as np
+    text = " ".join(np.random.default_rng(seed).choice(
+        EVAL_WORDS, words).tolist())
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text)
+    return os.path.getsize(path)
+
+
+def write_lambada_file(path, lines, seed, words=(8, 40)):
+    """A seeded LAMBADA-style ``.jsonl`` stand-in of ``lines`` lines of
+    ``words[0]`` to ``words[1]`` words each, the last word the cloze
+    target."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    vocab = [w for w in EVAL_WORDS if w.isalnum()]
+    with open(path, "w", encoding="utf-8") as f:
+        for _ in range(lines):
+            n = int(r.integers(words[0], words[1] + 1))
+            f.write(json.dumps({"text": " ".join(r.choice(vocab, n))})
+                    + "\n")
+    return os.path.getsize(path)
+
+
+def eval_argv(path, overrides, device, cloze=False):
+    """``eval`` entry-point arguments: the 345M eval recipe on ``path``,
+    plus ``overrides``."""
+    argv = ["-c", EVAL_CONFIG]
+    if device != "cuda":
+        argv += ["--device", device]
+    for o in [f"Offline_Eval.eval_path={path}",
+              f"Offline_Eval.cloze_eval={cloze}", *overrides]:
+        argv += ["-o", o]
+    return argv
+
+
+def eval_windows(path, overrides, cloze=False):
+    """``(config, windows or lines, tokenize seconds)`` of the eval
+    recipe on ``path``: the evaluation dataset that the entry point
+    builds, built once here to count its batches and time its
+    tokenizing."""
+    from paddlefleetx_tpu_torch.data.dataset.gpt_dataset_eval import (
+        Lambada_Eval_Dataset, LM_Eval_Dataset,
+    )
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    cfg = get_config(EVAL_CONFIG, [f"Offline_Eval.eval_path={path}",
+                                   f"Offline_Eval.cloze_eval={cloze}",
+                                   *overrides])
+    ev = cfg.Offline_Eval
+    t0 = time.perf_counter()
+    if cloze:
+        ds = Lambada_Eval_Dataset(path, ev.max_seq_len)
+    else:
+        ds = LM_Eval_Dataset(path, ev.max_seq_len, ev.overlapping_eval)
+    return cfg, len(ds), time.perf_counter() - t0
+
+
+def check_eval_counts(counts, batches, layers, label, moe=False,
+                      route=None):
+    """Kernel 1 launched once a layer and batch (all on ``route`` when
+    one is given; never on ``mma``), through the no-dropout dispatch; no
+    dense attention, no backward kernel, no kernel 9; with ``moe``,
+    kernel 8 twice a layer and batch, every block on ``sort_pallas``
+    and no ``moe/fallback``; without it, no kernel 8."""
+    want = layers * batches
+    c = counts["counters"]
+    routes = counts["flash_attention_routes"]
+    if counts["flash_attention"] != want or \
+            c.get("attention/flash", 0) != want or \
+            c.get("attention/flash_dropout", 0) or \
+            c.get("attention/dense", 0) or \
+            counts["flash_bwd_dkv"] or counts["flash_bwd_dq"] or \
+            counts["grouped_matmul_dw"]:
+        raise AssertionError(
+            f"{label}: kernel 1 launched {counts['flash_attention']} times "
+            f"(expected {want} = {layers} layers x {batches} batches), "
+            f"backward {counts['flash_bwd_dkv']} / {counts['flash_bwd_dq']},"
+            f" kernel 9 {counts['grouped_matmul_dw']}; counters {c}")
+    check_fwd_routes(counts, label)
+    if route is not None and routes.get(route, 0) != want:
+        raise AssertionError(f"{label}: kernel 1 routes {routes}, expected "
+                             f"all {want} on {route}")
+    if moe:
+        check_moe_forward_counts(counts, batches, layers, label)
+    elif counts["grouped_matmul"]:
+        raise AssertionError(f"{label}: a dense model launched kernel 8")
+
+
+def run_eval(label, path, overrides, device, cloze=False, moe=False):
+    """One run of the ``eval`` command on ``path`` (``cli.build_eval``
+    and ``Engine.evaluate``, the body of ``cli.eval_main``, the engine
+    kept to read its evaluation loop's time), the counts zeroed just
+    before and read just after (:func:`check_eval_counts`); returns the
+    phase record."""
+    import math
+    import torch
+    from paddlefleetx_tpu_torch import cli
+    cfg, n, tok_s = eval_windows(path, overrides, cloze)
+    batch = int(cfg.Offline_Eval.batch_size)
+    seq = int(cfg.Offline_Eval.max_seq_len)
+    batches = math.ceil(n / batch)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    engine, loader = cli.build_eval(eval_argv(path, overrides, device,
+                                              cloze))
+    engine.evaluate(epoch=0, valid_data_loader=loader)
+    got = engine.module.metrics
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    bf16 = bool(cfg.Engine.mix_precision.use_pure_fp16)
+    check_eval_counts(counts, batches, cfg.Model.num_layers, label, moe,
+                      route=None if device == "cpu" else
+                      "wgmma" if bf16 else "f32")
+    if not all(math.isfinite(v) for v in got.values()):
+        raise AssertionError(f"{label}: metrics {got}")
+    eval_s = engine._time_buckets["eval"]
+    record = {
+        "phase": label, "metrics": got, "file_bytes": os.path.getsize(path),
+        "samples": n, "batch": batch, "batches": batches,
+        "last_batch": n - (batches - 1) * batch, "seq": seq,
+        "layers": cfg.Model.num_layers, "hidden": cfg.Model.hidden_size,
+        "dtype": "bfloat16" if bf16 else "float32", "tokenize_s": tok_s, "wall_s": wall,
+        "eval_s": eval_s, "ms_per_batch": eval_s / batches * 1e3,
+        "forward_tokens_per_s": n * seq / eval_s,
+        "launches": {k: counts[k] for k in (
+            "flash_attention", "flash_bwd_dkv", "flash_bwd_dq",
+            "grouped_matmul", "grouped_matmul_dw")},
+        "launches_by_route": {
+            "flash_attention": counts["flash_attention_routes"],
+            "grouped_matmul": counts["grouped_matmul_routes"]},
+        "counters": counts["counters"]}
+    if device != "cpu":
+        record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return record
+
+
+def phase_kernels_eval(device="cuda", b=8, s=1024, groups=GMM_EVAL,
+                       calls=GMM_SERVE_CALLS):
+    """Kernel 1 at the eval batch (bf16, b8 h16 s1024 d64, causal, no
+    bias, no dropout: :func:`fwd_case`, on the card only) and kernel 8
+    at the MoE eval batch's fc1 and fc2 (bf16, ``groups``, every group
+    live: :func:`gmm_case`), each against its plain version, launched
+    twice and bit-equal, its route read from the counts and timed beside
+    the other routes, its bound, the plain version and the library call
+    (SDPA; ``torch.bmm`` over the same live groups). Returns ``(kernel-1
+    case or None, kernel-8 cases)``."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    from paddlefleetx_tpu_torch.ops.cuda import grouped_matmul as gmm
+    fwd = None
+    if device != "cpu":
+        fwd = fwd_case(fa, torch, torch.bfloat16, b, 16, s, 64, False, 1500)
+        fwd["path"] = "eval"
+        emit({"phase": "kernel1_eval", **fwd})
+        torch.cuda.empty_cache()
+    cases = []
+    for i, (call, k, n) in enumerate(calls):
+        case = gmm_case(gmm, torch, torch.bfloat16, call, k, n, 1510 + i,
+                        device, groups, empty=())
+        case["path"] = "eval_moe"
+        cases.append(case)
+        emit({"phase": "kernel_gmm_eval", **case})
+    return fwd, cases
+
+
+def phase_eval(device="cuda", overrides=(), words=EVAL_SIZES["dense"]):
+    """The dense 345M eval recipe as written (24 layers, hidden 1024,
+    bf16, batch 8, ``max_seq_len`` 1024, ``overlapping_eval`` 32, weights
+    from ``Global.seed``) through ``cli.eval_main`` on a seeded
+    WikiText-style file of ``words`` words, counted (:func:`run_eval`);
+    then the seeded model saved with ``Engine.save`` and evaluated again
+    from that checkpoint under another seed, which must give the same
+    metrics. Returns the record."""
+    import torch
+    from paddlefleetx_tpu_torch import cli
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTEvalModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    tmp = tempfile.mkdtemp(prefix="pfx_eval_")
+    try:
+        path = os.path.join(tmp, "wiki.valid.tokens")
+        write_wiki_file(path, words, seed=41)
+        record = run_eval("eval", path, overrides, device)
+        got = record["metrics"]
+        if not got["ppl"] > 1.0:
+            raise AssertionError(f"eval: metrics {got}")
+        cfg = get_config(EVAL_CONFIG, [f"Offline_Eval.eval_path={path}",
+                                       *overrides])
+        module = GPTEvalModule(cfg, device=device)
+        engine = Engine(cfg, module, mode="eval", device=device)
+        engine.output_dir = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        engine.save(0)
+        save_s = time.perf_counter() - t0
+        del engine, module
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        seed = int(cfg.Global.seed) + 1
+        loaded = cli.eval_main(eval_argv(path, [
+            *overrides, f"Global.seed={seed}",
+            "Engine.save_load.ckpt_dir=" + os.path.join(tmp, "ckpt")],
+            device))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if loaded != got:
+        raise AssertionError(f"eval: from the checkpoint {loaded}, the "
+                             f"seeded model {got}")
+    record.update(ckpt_metrics=loaded, ckpt_equal=True, ckpt_seed=seed,
+                  save_s=save_s)
+    emit(record)
+    return record
+
+
+def phase_eval_cloze(device="cuda", overrides=(),
+                     lines=EVAL_SIZES["cloze_lines"], words=(8, 40)):
+    """``cloze_eval: True`` on a seeded LAMBADA-style stand-in of
+    ``lines`` lines through ``cli.eval_main``, counted
+    (:func:`run_eval`): ``num_examples`` (the accuracy's denominator)
+    equal to the line count and the accuracy in [0, 1]."""
+    tmp = tempfile.mkdtemp(prefix="pfx_cloze_")
+    try:
+        path = os.path.join(tmp, "lambada_test.jsonl")
+        write_lambada_file(path, lines, seed=43, words=words)
+        record = run_eval("eval_cloze", path, overrides, device, cloze=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = record["metrics"]
+    if record["samples"] != lines or not 0.0 <= got["acc"] <= 1.0 or \
+            abs(got["acc"] * lines - got["correct"]) > 1e-9:
+        raise AssertionError(f"eval_cloze: {lines} lines, {record['samples']}"
+                             f" samples, metrics {got}")
+    emit(record)
+    return record
+
+
+def phase_eval_moe(device="cuda", overrides=(), words=EVAL_SIZES["moe"]):
+    """The eval recipe with ``MOE_KNOBS`` (the 8x345M model: 8 experts,
+    top-2, capacity factor 1.25, ``sort_pallas``) through
+    ``cli.eval_main``, counted (:func:`run_eval`: kernel 8 exactly twice
+    a layer and batch on its planned routes, no ``moe/fallback``, no
+    kernel 9)."""
+    tmp = tempfile.mkdtemp(prefix="pfx_eval_moe_")
+    try:
+        path = os.path.join(tmp, "wiki.valid.tokens")
+        write_wiki_file(path, words, seed=47)
+        record = run_eval("eval_moe", path, [*MOE_KNOBS, *overrides],
+                          device, moe=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not record["metrics"]["ppl"] > 1.0:
+        raise AssertionError(f"eval_moe: metrics {record['metrics']}")
+    record["model"] = "MoE GPT 8x345M"
+    emit(record)
+    return record
+
+
+def phase_eval_profile(device="cuda", batches=4, words=600):
+    """Where an eval batch's time goes: the dense 345M eval recipe and
+    the 8x345M model (``MOE_KNOBS``) on a seeded WikiText-style file,
+    ``batches`` batches of ``Engine.evaluate`` (each: the host's fetch
+    and collate, the copy to the card, the forward and the score's
+    read-back) under ``torch.profiler`` after one warm batch; kernel
+    time by category, the device's idle share and kernels a batch."""
+    import torch
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.data import build_dataloader
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTEvalModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    tmp = tempfile.mkdtemp(prefix="pfx_eval_profile_")
+    windows = []
+    try:
+        path = os.path.join(tmp, "wiki.valid.tokens")
+        write_wiki_file(path, words, seed=61)
+        for label, knobs in (("eval_batch", ()),
+                             ("eval_moe_batch", MOE_KNOBS)):
+            cfg = get_config(EVAL_CONFIG, [f"Offline_Eval.eval_path={path}",
+                                           *knobs])
+            module = GPTEvalModule(cfg, device=device)
+            engine = Engine(cfg, module, mode="eval", device=device)
+            loader = build_dataloader(cfg.Data, "Eval")
+            engine.evaluate(0, loader, max_iters=1)
+            windows.append(profile_window(
+                torch, label, lambda: engine.evaluate(0, loader, batches),
+                batches))
+            del engine, module
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "eval_profile", "batch": int(cfg.Offline_Eval.batch_size),
+          "seq": int(cfg.Offline_Eval.max_seq_len), "windows": windows})
+    return windows
+
+
+def _masked_top2(model, cfg, batch):
+    """``(argmax, top-1 minus top-2, max |logit|)`` of the fp32 logits at
+    each loss-masked position of an evaluation batch."""
+    import torch
+    from paddlefleetx_tpu_torch.models.gpt.model import (
+        compute_context, tied_logits,
+    )
+    tokens, mask, _attn, pos, _labels, _info = batch
+    with torch.no_grad(), compute_context(cfg, tokens.device):
+        h = model.gpt(tokens, pos)
+        logits = tied_logits(h[mask > 0], model.word_embeddings).float()
+    top = torch.topk(logits, 2)
+    return top.indices[:, 0], top.values[:, 0] - top.values[:, 1], \
+        logits.abs().max(dim=-1).values
+
+
+def phase_eval_parity(device="cuda", overrides=(), max_batches=2,
+                      words=EVAL_SIZES["parity"],
+                      lines=EVAL_SIZES["parity_cloze_lines"],
+                      line_words=(8, 40), near=1e-4):
+    """In fp32 at full width, each evaluation batch's score through the
+    kernels against the same weights on the dense path: the dense model
+    (kernel 1) against ``use_flash_attention: False``, the MoE model
+    (``sort_pallas``: kernels 1 and 8) against ``sort`` with dense
+    attention. WikiText: each batch's NLL sum within
+    ``EVAL_PARITY_RTOL``. LAMBADA: the counts equal, and every masked
+    position's argmax equal unless its top-2 gap on the kernel path is
+    below ``near`` of the logit scale (a near tie, reported); the
+    smallest gap is printed either way. Each path's launches are
+    counted: the kernels on the first, none on the second."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from paddlefleetx_tpu_torch.data import build_dataloader
+    from paddlefleetx_tpu_torch.models.gpt.model import build_model
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTEvalModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    tmp = tempfile.mkdtemp(prefix="pfx_eval_parity_")
+    record = {"phase": "eval_parity", "dtype": "float32",
+              "rtol": EVAL_PARITY_RTOL, "near_tie": near, "arms": {}}
+    try:
+        wiki = os.path.join(tmp, "wiki.valid.tokens")
+        lam = os.path.join(tmp, "lambada_test.jsonl")
+        write_wiki_file(wiki, words, seed=53)
+        write_lambada_file(lam, lines, seed=59, words=line_words)
+        for arm, knobs, plain_over in (
+                ("dense", (), {"use_flash_attention": False}),
+                ("moe", MOE_KNOBS, {"use_flash_attention": False,
+                                    "moe_dispatch": "sort"})):
+            for cloze, path in ((False, wiki), (True, lam)):
+                cfg = get_config(EVAL_CONFIG, [
+                    f"Offline_Eval.eval_path={path}",
+                    f"Offline_Eval.cloze_eval={cloze}",
+                    "Engine.mix_precision.use_pure_fp16=False", *knobs,
+                    *overrides])
+                module = GPTEvalModule(cfg, device=device)
+                mcfg = module.model_config
+                plain = build_model(dataclasses.replace(mcfg, **plain_over),
+                                    module.device,
+                                    state_dict=module.model.state_dict(),
+                                    train=True).eval()
+                module.model.eval()
+                rec = {"batches": 0, "scores": [], "plain_scores": [],
+                       "max_rel_diff": 0.0, "mismatches": [],
+                       "min_top2_gap": None, "masked_positions": 0}
+                for i, batch in enumerate(build_dataloader(cfg.Data,
+                                                           "Eval")):
+                    if i >= max_batches:
+                        break
+                    module.pretreating_batch(batch)
+                    dev = tuple(torch.from_numpy(np.asarray(x)).to(
+                        module.device) for x in batch)
+                    runs = {}
+                    for name, m in (("kernel", module.model),
+                                    ("plain", plain)):
+                        reset_counts()
+                        with torch.no_grad():
+                            runs[name] = float(module.loss_fn(m, dev, 0))
+                        runs[name + "_counts"] = read_counts()
+                    check_eval_counts(runs["kernel_counts"], 1,
+                                      mcfg.num_layers, f"eval_parity_{arm}",
+                                      moe=bool(knobs), route=None if
+                                      device == "cpu" else "f32")
+                    pc = runs["plain_counts"]
+                    if pc["flash_attention"] or pc["grouped_matmul"] or \
+                            pc["counters"].get("moe/sort_pallas", 0):
+                        raise AssertionError(f"eval_parity_{arm}: the plain "
+                                             f"path launched a kernel")
+                    rec["batches"] += 1
+                    rec["scores"].append(runs["kernel"])
+                    rec["plain_scores"].append(runs["plain"])
+                    if not cloze:
+                        rel = abs(runs["kernel"] - runs["plain"]) / \
+                            abs(runs["plain"])
+                        rec["max_rel_diff"] = max(rec["max_rel_diff"], rel)
+                        continue
+                    got, gap, scale = _masked_top2(module.model, mcfg, dev)
+                    want, _, _ = _masked_top2(plain, mcfg, dev)
+                    rec["masked_positions"] += int(got.numel())
+                    low = float(gap.min())
+                    rec["min_top2_gap"] = low if rec["min_top2_gap"] is \
+                        None else min(rec["min_top2_gap"], low)
+                    for j in torch.nonzero(got != want).flatten().tolist():
+                        tie = {"batch": i, "position": j,
+                               "top2_gap": float(gap[j]),
+                               "logit_scale": float(scale[j])}
+                        rec["mismatches"].append(tie)
+                        if tie["top2_gap"] >= near * tie["logit_scale"]:
+                            raise AssertionError(
+                                f"eval_parity_{arm}: cloze argmax differs "
+                                f"at {tie}, no near tie")
+                key = f"{arm}_{'cloze' if cloze else 'lm'}"
+                record["arms"][key] = rec
+                if not cloze and rec["max_rel_diff"] > EVAL_PARITY_RTOL:
+                    raise AssertionError(
+                        f"eval_parity_{key}: NLL sums {rec['scores']} vs "
+                        f"{rec['plain_scores']} (rel {rec['max_rel_diff']:.2e}"
+                        f" > {EVAL_PARITY_RTOL:.0e})")
+                if cloze and not rec["mismatches"] and \
+                        rec["scores"] != rec["plain_scores"]:
+                    raise AssertionError(f"eval_parity_{key}: counts "
+                                         f"{rec['scores']} vs "
+                                         f"{rec['plain_scores']}")
+                if rec["batches"] < 1:
+                    raise AssertionError(f"eval_parity_{key}: no batch")
+                del module, plain
+                if device != "cpu":
+                    torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(record)
+    return record
+
+
+def phase_predict(device="cuda", overrides=(), iters=4):
+    """``Engine.predict`` with ``Engine.test_iters`` = ``iters`` on the
+    345M pretraining recipe (bf16, weights from ``Global.seed``) over
+    ``write_train_corpus``'s held-out split, the recipe's ``Eval``
+    section (the recipe has no ``Test`` section, and a ``GPTDataset`` in
+    ``Test`` mode yields ``[tokens, position_ids]``, which the default
+    ``predict_step``, the eval-mode loss as in the JAX package, cannot
+    score), the counts zeroed just before and read just after:
+    ``iters`` finite losses and kernel 1 once a layer and batch."""
+    import math
+    import torch
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.data import build_dataloader
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+    tmp = tempfile.mkdtemp(prefix="pfx_predict_")
+    try:
+        data = os.path.join(tmp, "data")
+        over = [f"Engine.test_iters={iters}", "Engine.max_steps=4",
+                "Engine.eval_freq=1000000", f"Engine.eval_iters={iters}",
+                *overrides]
+        write_train_corpus(data, over, 4)
+        cfg = get_config(TRAIN_CONFIG, over + [
+            f"Data.{m}.dataset.input_dir={data}" for m in ("Train", "Eval")])
+        module = GPTModule(cfg, device=device)
+        engine = Engine(cfg, module, mode="eval", device=device)
+        loader = build_dataloader(cfg.Data, "Eval")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = engine.predict(0, loader)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [float(o) for o in outs]
+    layers = module.model_config.num_layers
+    if engine.test_iters != iters or len(losses) != iters or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"predict: test_iters {engine.test_iters}, "
+                             f"outputs {losses}")
+    check_eval_counts(counts, iters, layers, "predict",
+                      route=None if device == "cpu" else "wgmma")
+    record = {"phase": "predict", "test_iters": iters, "losses": losses,
+              "batch": cfg.Global.global_batch_size,
+              "seq": cfg.Data.Eval.dataset.max_seq_len, "layers": layers,
+              "dtype": module.model_config.dtype, "wall_s": wall,
+              "ms_per_batch": wall / iters * 1e3,
+              "launches": {k: counts[k] for k in (
+                  "flash_attention", "flash_bwd_dkv", "flash_bwd_dq")},
+              "launches_by_route": {
+                  "flash_attention": counts["flash_attention_routes"]},
+              "counters": counts["counters"]}
     emit(record)
     return record
 
@@ -4691,7 +5236,7 @@ def int8_rows(dec8, window8, qmm_cases, runs) -> list:
 
 def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
                  serve_paged=None, spec=None, int8=None, moe=None,
-                 lora=None) -> dict:
+                 lora=None, evals=None) -> dict:
     """The per-kernel record: each kernel's main-path shape (kernel 1:
     the serving case first, the training case beside it, each with its
     route and the ``mma`` route's time; kernels 3 and 4: the recipe's
@@ -4701,10 +5246,14 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
     train_moe; kernel 1 also by route), each counted from zero just
     before its path ran. Kernels 3 and 4
     also carry the pair's time and the bound of the one TPU function
-    they replace together (5 products, ``bound_ms_both``)."""
+    they replace together (5 products, ``bound_ms_both``). With
+    ``evals`` (:func:`eval_rows`), kernels 1 and 8 also carry their
+    eval-shape cases and the eval paths' launches."""
     k1_paths = {"serve": serve, "train": train}
     if moe is not None:
         k1_paths["train_moe"] = moe[1]
+    if evals is not None:
+        k1_paths.update(evals["runs"])
     k1_launch = {p: rec["launches"]["flash_attention"]
                  for p, rec in k1_paths.items()}
     k1_routes = {}
@@ -4713,8 +5262,10 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
                 "flash_attention", {}).items():
             k1_routes[r] = k1_routes.get(r, 0) + n
     rows = []
+    fwd_eval = [evals["fwd"]] if evals and evals.get("fwd") else []
     for name, cases, source, replaces, launches in (
-            ("flash_attention", fwd + fwd_drop, "paddlefleetx_tpu_torch/"
+            ("flash_attention", fwd + fwd_drop + fwd_eval,
+             "paddlefleetx_tpu_torch/"
              "csrc/flash_fwd.cu", "paddlefleetx_tpu/ops/pallas/"
              "flash_attention.py:209", k1_launch),
             ("flash_decode", dec, "paddlefleetx_tpu_torch/csrc/"
@@ -4811,7 +5362,44 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
             len(moe) > 2 else None)
     if lora is not None:
         rows += lora_rows(lora[0], lora[1])
+    if evals is not None:
+        eval_rows(rows, evals)
     return {"kernels": rows}
+
+
+_EVAL_KEYS = ("route", "ms", "call_ms", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "max_abs_err", "rel_l2")
+
+
+def eval_rows(rows, evals) -> None:
+    """Add the eval slice to the kernels line's ``rows``: kernel 1's
+    eval-shape case (``eval_shape``; its launches on ``eval``,
+    ``eval_cloze``, ``eval_moe`` and ``predict`` are in its
+    ``launches_by_path`` already) and kernel 8's fc1 and fc2 at the MoE
+    eval batch (``eval``), with ``eval_moe``'s launches by path and by
+    route. ``evals``: ``{"fwd": kernel-1 case, "gmm": kernel-8 cases,
+    "runs": {path: record}}``."""
+    by_name = {r["name"]: r for r in rows}
+    k1 = by_name["flash_attention"]
+    if evals.get("fwd"):
+        c = evals["fwd"]
+        k1["eval_shape"] = {k: c.get(k) for k in (
+            "dtype", "b", "h", "s", "d", "bias", "block_n", "mma_ms",
+            *_EVAL_KEYS)}
+    k8 = by_name.get("grouped_matmul")
+    run = evals["runs"].get("eval_moe")
+    if k8 is None or run is None:
+        return
+    n = run["launches"]["grouped_matmul"]
+    k8["launches_by_path"]["eval_moe"] = n
+    k8["launches"] += n
+    for r, m in run["launches_by_route"]["grouped_matmul"].items():
+        k8["launches_by_route"][r] = k8["launches_by_route"].get(r, 0) + m
+    k8["eval"] = {c["call"]: {k: c.get(k) for k in (
+        "G", "C", "K", "N", "live_groups", "ms_prev_design", *_EVAL_KEYS)}
+        for c in evals["gmm"]}
+    k8["max_abs_err"] = k8["max_err"] = max(
+        [k8["max_abs_err"]] + [c["max_abs_err"] for c in evals["gmm"]])
 
 
 def main() -> int:
@@ -4836,6 +5424,7 @@ def main() -> int:
     gmm_cases = phase_kernel_gmm()
     gmm_serve = phase_kernel_gmm_serving()
     gmm_lora = phase_kernel_gmm_lora()
+    fwd_eval, gmm_eval = phase_kernels_eval()
     fwd_drop = phase_kernel1_dropout()
     bwd = phase_backward()
     torch.cuda.empty_cache()
@@ -4885,6 +5474,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity_moe()
     torch.cuda.empty_cache()
+    evals = {"fwd": fwd_eval, "gmm": gmm_eval, "runs": {}}
+    evals["runs"]["eval"] = phase_eval()
+    torch.cuda.empty_cache()
+    evals["runs"]["eval_cloze"] = phase_eval_cloze()
+    torch.cuda.empty_cache()
+    evals["runs"]["eval_moe"] = phase_eval_moe()
+    torch.cuda.empty_cache()
+    phase_eval_parity()
+    torch.cuda.empty_cache()
+    phase_eval_profile()
+    torch.cuda.empty_cache()
+    evals["runs"]["predict"] = phase_predict()
+    torch.cuda.empty_cache()
     serve_lora, module = phase_serve_lora()
     phase_profile_lora(module)
     del module
@@ -4901,7 +5503,7 @@ def main() -> int:
                       serve_paged, spec,
                       (dec8, window8, qmm_cases, int8_runs),
                       (gmm_cases, train_moe, (gmm_serve, serve_moe)),
-                      (qmm_dx_cases, grad, *gmm_lora, serve_lora)))
+                      (qmm_dx_cases, grad, *gmm_lora, serve_lora), evals))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,12 +6,22 @@
         [--requests N] [--slots S] [--max-prompt-len L] [--device ...]
     python -m paddlefleetx_tpu_torch.cli train -c <yaml> [-o k=v] \
         [--device cuda|cpu]
+    python -m paddlefleetx_tpu_torch.cli eval -c <yaml> [-o k=v] \
+        [--device cuda|cpu]
 
 ``train`` is the counterpart of the JAX package's ``cli.train_main``:
 config -> ``GPTModule`` -> ``Engine`` -> the Train / Eval loaders of the
 ``Data`` section -> ``Engine.fit`` (a token corpus of ``*_ids.npy`` +
 ``*_idx.npz`` files in ``Data.*.dataset.input_dir``; resume with ``-o
 Engine.save_load.ckpt_dir=<dir>``).
+
+``eval`` is the counterpart of the JAX package's ``cli.eval_main``:
+config -> ``GPTEvalModule`` (whatever ``Model.module`` says) -> ``Engine``
+in eval mode (no optimizer; ``Engine.save_load.ckpt_dir`` loads a
+checkpoint) -> the ``Eval`` loader over ``Offline_Eval.eval_path`` ->
+``Engine.evaluate``; it returns the module's metrics (WikiText
+``loss`` / ``ppl`` / ``adjusted_ppl``, or with ``Offline_Eval.cloze_eval``
+LAMBADA ``acc`` / ``correct``).
 
 ``generate`` is the counterpart of the JAX package's
 ``tasks/gpt/generation.py``: config -> ``GPTGenerationModule`` ->
@@ -26,7 +36,7 @@ completion and a summary line; the recipe's ``Model.kv_page_size`` /
 ``Model.kv_cache_dtype=int8`` / ``Model.quant_execution=weight_only_int8``
 the int8 KV cache and the int8 dense sites, as in the JAX package (no
 flag of their own). Both draw their weights from
-``Global.seed`` (they load no checkpoint yet). All three run on the card
+``Global.seed`` (they load no checkpoint yet). All four run on the card
 unless ``--device cpu``.
 """
 
@@ -41,7 +51,9 @@ import numpy as np
 from .core.engine import Engine
 from .core.serving import GenerationServer
 from .data import build_dataloader
-from .models.gpt.modules import GPTGenerationModule, GPTModule
+from .models.gpt.modules import (
+    GPTEvalModule, GPTGenerationModule, GPTModule,
+)
 from .utils.config import get_config, parse_args
 from .utils.log import logger
 
@@ -117,12 +129,32 @@ def train_main(argv: Optional[List[str]] = None) -> Engine:
     return engine
 
 
+def build_eval(argv: Optional[List[str]] = None):
+    """The ``eval`` command's pieces: config -> ``GPTEvalModule`` ->
+    ``Engine`` (eval mode); returns ``(engine, Eval loader)``."""
+    args = parse_args(argv, extra=lambda p: p.add_argument(
+        "--device", default=None))
+    cfg = get_config(args.config, args.override)
+    cfg.Model.module = "GPTEvalModule"
+    module = GPTEvalModule(cfg, device=args.device)
+    engine = Engine(cfg, module, mode="eval", device=args.device)
+    return engine, build_dataloader(cfg.Data, "Eval")
+
+
+def eval_main(argv: Optional[List[str]] = None) -> dict:
+    """Evaluate offline: :func:`build_eval`, then ``Engine.evaluate``
+    over the Eval loader; returns the module's metrics."""
+    engine, loader = build_eval(argv)
+    engine.evaluate(epoch=0, valid_data_loader=loader)
+    return engine.module.metrics
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    """``python -m paddlefleetx_tpu_torch.cli {generate,serve,train}
+    """``python -m paddlefleetx_tpu_torch.cli {generate,serve,train,eval}
     ...``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     commands = {"generate": generate_main, "serve": serve_main,
-                "train": train_main}
+                "train": train_main, "eval": eval_main}
     if not argv or argv[0] not in commands:
         print(f"usage: python -m paddlefleetx_tpu_torch.cli "
               f"{{{','.join(commands)}}} -c <yaml> [-o k=v ...]",

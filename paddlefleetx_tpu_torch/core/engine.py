@@ -7,9 +7,17 @@ loop: ``fit`` walks the train loader from the resume point, runs
 stream; loss and gradients averaged over them), clips and updates with
 the scheduled rate, logs every ``logging_freq`` steps, evaluates every
 ``eval_freq`` steps for ``eval_iters`` batches and saves every
-``save_steps``; ``save`` / ``load`` write and restore a checkpoint
-(``core/checkpoint.py``) and ``Engine.save_load.ckpt_dir`` resumes at
-construction. A model with LoRA banks (``lora_rank > 0``) fine-tunes
+``save_steps``; with ``Engine.print_summary`` it ends by printing the
+run summary (:meth:`summary_stats`: step-time windows, tokens/s, model
+FLOPs and MFU against the H100's bf16 peak, goodput with its eval and
+save buckets, the dispatch counters). ``evaluate`` walks an eval loader,
+and ``predict`` walks a test loader through ``module.predict_step`` for
+at most ``test_iters`` batches (default ``eval_iters * 10``; a value
+<= 0 walks it all). Each host batch passes ``module.pretreating_batch``
+before it moves to the device. ``save`` / ``load`` write and restore a
+checkpoint (``core/checkpoint.py``) and ``Engine.save_load.ckpt_dir``
+resumes at construction, in every mode. A model with LoRA banks
+(``lora_rank > 0``) fine-tunes
 with the base frozen, as the JAX engine's ``optax.multi_transform``
 does: AdamW, its clipping and decay mask cover the ``*_lora`` parameters
 only, the base parameters keep no optimizer state and never move, and
@@ -20,7 +28,10 @@ so the banks see zero gradients there and only weight decay moves
 this slice does not port (data, model,
 pipeline, sharding or expert parallelism, optimizer offload, the profiler
 window, telemetry, asynchronous or preemption saves, retention, epoch
-run mode) raise ``NotImplementedError``; none is ignored.
+run mode) raise ``NotImplementedError``; none is ignored. The summary
+has no lines for what the port does not have: the prefetch thread's
+waits, the compile bucket, the model-parallel probe and the HBM
+telemetry.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ import numpy as np
 import torch
 
 from ..models.gpt.model import fold_seed
+from ..observability import flops
+from ..observability import metrics as obs_metrics
 from ..optims import build_lr_scheduler, build_optimizer
 from ..optims.optimizer import clip_by_global_norm_
 from ..utils.device import resolve_device
@@ -70,6 +83,16 @@ def _unported_knobs(configs) -> List[str]:
     return sorted(k for k, on in asked.items() if on)
 
 
+def _to_host(out):
+    """A predict output on the host: tensors as numpy, a dict's entries
+    each."""
+    if isinstance(out, dict):
+        return {k: _to_host(v) for k, v in out.items()}
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu().numpy()
+    return out
+
+
 class Engine:
     """Trainer for a module with the ``BasicModule`` contract on one
     device.
@@ -77,7 +100,8 @@ class Engine:
     Args:
         configs: the parsed config tree.
         module: e.g. ``GPTModule``; its model lives on ``device``.
-        mode (str): ``"train"`` builds the optimizer; else evaluation.
+        mode (str): ``"train"`` builds the optimizer; else evaluation
+            and prediction only.
         device: ``None`` (the card; raises without one), ``"cuda"`` or
             ``"cpu"``.
     """
@@ -107,6 +131,13 @@ class Engine:
         eval_iters = eng.get("eval_iters", 10)
         self.eval_iters = eval_iters if eval_iters and eval_iters > 0 \
             else None
+        test_iters = eng.get("test_iters",
+                             eval_iters * 10 if eval_iters else 0)
+        self.test_iters = test_iters if test_iters and test_iters > 0 \
+            else sys.maxsize
+        #: whether ``fit`` ends with the run summary (the JAX default
+        #: also prints it under the profiler or telemetry, both refused)
+        self.print_summary = bool(eng.get("print_summary"))
         self.accumulate_steps = eng.get("accumulate_steps", 1) or 1
         save_load = eng.get("save_load", {}) or {}
         self.save_steps = save_load.get("save_steps") or sys.maxsize
@@ -137,6 +168,14 @@ class Engine:
         self.step = 0
         #: every logged step's record (loss, lr, grad_norm, train_cost)
         self.history: List[Dict[str, Any]] = []
+        #: the seconds a step of each clean logging window (no eval or
+        #: save inside it) of the last ``fit``
+        self._step_costs: List[float] = []
+        #: host wall time of the last ``fit`` not spent in steps
+        self._time_buckets = {"eval": 0.0, "save": 0.0}
+        self._fit_t0: Optional[float] = None
+        #: the last ``fit``'s :meth:`summary_stats`
+        self.summary: Dict[str, Any] = {}
         self._load_recovery = {"epoch": 0, "step": 0, "consumed_samples": 0}
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("initialized model: %.1fM params on %s",
@@ -196,7 +235,11 @@ class Engine:
     def fit(self, epoch: int = 1, train_data_loader=None,
             valid_data_loader=None) -> None:
         """Train for ``epoch`` epochs or ``max_steps`` steps, from the
-        resume point, with the configured eval, log and save cadence."""
+        resume point, with the configured eval, log and save cadence;
+        then set ``summary`` and, with ``print_summary``, log it."""
+        self._step_costs = []
+        self._time_buckets = {"eval": 0.0, "save": 0.0}
+        self._fit_t0 = time.time()
         start_epoch = self._load_recovery["epoch"]
         consumed = self._load_recovery["consumed_samples"]
         for ep in range(start_epoch, epoch):
@@ -212,14 +255,19 @@ class Engine:
             consumed = 0
             if self.step >= self.max_steps:
                 break
+        self.summary = self.summary_stats()
+        if self.print_summary:
+            self._print_summary(self.summary)
 
     def _train_one_epoch(self, epoch: int, train_data_loader,
                          valid_data_loader=None) -> None:
         step_start = time.time()
+        window_clean = True
         for batch in train_data_loader:
             if self.step >= self.max_steps:
                 return
-            loss, norm, lr = self.train_step(batch)
+            loss, norm, lr = self.train_step(
+                self.module.pretreating_batch(batch))
             if self.step % self.logging_freq == 0:
                 log = {"epoch": epoch, "batch": self.step,
                        "loss": float(loss), "lr": lr,
@@ -228,14 +276,20 @@ class Engine:
                        / self.logging_freq}
                 self.history.append(log)
                 self.module.training_step_end(dict(log))
+                # a window that an eval or a save reset is not a sample
+                if window_clean:
+                    self._step_costs.append(log["train_cost"])
+                window_clean = True
                 step_start = time.time()
             if self.step % self.eval_freq == 0 and \
                     valid_data_loader is not None:
                 self.evaluate(epoch, valid_data_loader, self.eval_iters)
                 step_start = time.time()
+                window_clean = False
             if self.step % self.save_steps == 0:
                 self.save(epoch)
                 step_start = time.time()
+                window_clean = False
 
     @torch.no_grad()
     def evaluate(self, epoch: int = 1, valid_data_loader=None,
@@ -248,17 +302,131 @@ class Engine:
         for i, batch in enumerate(valid_data_loader):
             if max_iters is not None and i >= max_iters:
                 break
-            loss = self.module.loss_fn(self.model, self._to_device(batch),
-                                       self.seed, train=False)
+            batch = self._to_device(self.module.pretreating_batch(batch))
+            loss = self.module.loss_fn(self.model, batch, self.seed,
+                                       train=False)
             losses.append(float(loss))
             self.module.validation_step_end({
                 "epoch": epoch, "batch": i, "loss": losses[-1],
                 "eval_cost": (time.time() - t0) / (i + 1)})
         self.model.train()
         mean = float(np.mean(losses)) if losses else float("nan")
+        eval_s = time.time() - t0
+        self._time_buckets["eval"] += eval_s
         self.module.validation_epoch_end(
-            {"epoch": epoch, "loss": mean, "eval_cost": time.time() - t0})
+            {"epoch": epoch, "loss": mean, "eval_cost": eval_s})
         return mean
+
+    @torch.no_grad()
+    def predict(self, epoch: int = 1, test_data_loader=None) -> List[Any]:
+        """Walk at most ``test_iters`` batches of the test loader through
+        ``module.predict_step`` (the eval-mode loss by default), with a
+        ``test_step_end`` call per batch; returns each batch's output
+        on the host (numpy; a dict's entries each)."""
+        self.model.eval()
+        outs = []
+        t0 = time.time()
+        for i, batch in enumerate(test_data_loader):
+            if i >= self.test_iters:
+                logger.info("The predicting process is complete.")
+                break
+            batch = self._to_device(self.module.pretreating_batch(batch))
+            out = _to_host(self.module.predict_step(self.model, batch,
+                                                    self.seed))
+            outs.append(out)
+            arr = out.get("loss") if isinstance(out, dict) else out
+            self.module.test_step_end({
+                "epoch": epoch, "batch": i,
+                # a dict without a loss entry logs nan
+                "loss": float(np.mean(arr)) if arr is not None
+                else float("nan"),
+                "test_cost": (time.time() - t0) / (i + 1)})
+        self.model.train()
+        return outs
+
+    # -- run summary ----------------------------------------------------
+
+    def summary_stats(self) -> Dict[str, Any]:
+        """The last ``fit``'s summary: its clean step-time windows (the
+        first apart: it holds the warm-up), tokens/s over the steady
+        windows' mean, model FLOPs a token and MFU against one H100's
+        bf16 peak (``observability/flops.py``), the goodput (the wall
+        time less the eval and save buckets, over the wall time) and the
+        process-global dispatch counters when they are on."""
+        costs = list(self._step_costs)
+        stats: Dict[str, Any] = {"windows": costs,
+                                 "logging_freq": self.logging_freq}
+        mean = 0.0
+        if costs:
+            steady = costs[1:] or costs
+            mean = sum(steady) / len(steady)
+            stats["first_window_s_per_step"] = costs[0]
+            stats["steady_mean_s_per_step"] = mean
+            stats["steady_min_s_per_step"] = min(steady)
+            stats["steady_max_s_per_step"] = max(steady)
+        seq = ((self.configs.get("Data") or {}).get("Train") or {}).get(
+            "dataset", {}).get("max_seq_len", 0)
+        tokens = self.global_batch_size * seq
+        mcfg = getattr(self.model, "config", None)
+        if tokens and mean > 0:
+            tps = tokens / mean
+            stats["tokens_per_sec"] = tps
+            if mcfg is not None:
+                fpt = flops.model_flops_per_token(
+                    mcfg.num_layers, mcfg.hidden_size, mcfg.vocab_size, seq)
+                stats["model_flops_per_token"] = fpt
+                stats["achieved_tflops"] = tps * fpt / 1e12
+                stats["mfu"] = flops.mfu(tps, fpt)
+        if self._fit_t0 is not None:
+            total = max(time.time() - self._fit_t0, 1e-9)
+            b = self._time_buckets
+            stats["wall_total_s"] = total
+            stats["bucket_eval_s"] = b["eval"]
+            stats["bucket_save_s"] = b["save"]
+            stats["goodput_pct"] = 100.0 * max(
+                total - b["eval"] - b["save"], 0.0) / total
+        registry = obs_metrics.get_registry()
+        if registry.enabled:
+            counters = registry.snapshot()["counters"]
+            if counters:
+                stats["dispatch_counters"] = counters
+        return stats
+
+    def _print_summary(self, stats: Dict[str, Any]) -> None:
+        """Log the run summary ``stats`` (nothing without a window)."""
+        costs = stats.get("windows") or []
+        if not costs:
+            return
+        mean = stats["steady_mean_s_per_step"]
+        logger.info("-" * 60)
+        logger.info("Run summary (host step times, %d windows of %d "
+                    "steps)", len(costs), self.logging_freq)
+        logger.info("  first window (incl. warm-up): %.4f s/step",
+                    costs[0])
+        logger.info("  steady state: mean %.4f / min %.4f / max %.4f "
+                    "s/step (%.2f step/s)", mean,
+                    stats["steady_min_s_per_step"],
+                    stats["steady_max_s_per_step"],
+                    1.0 / mean if mean else 0.0)
+        if "tokens_per_sec" in stats:
+            logger.info("  throughput: %.0f tokens/s (global batch %d)",
+                        stats["tokens_per_sec"], self.global_batch_size)
+        if "model_flops_per_token" in stats:
+            logger.info(
+                "  model FLOPs: %.3e /token; achieved %.2f TFLOP/s; "
+                "MFU %.4f of the H100's bf16 peak",
+                stats["model_flops_per_token"], stats["achieved_tflops"],
+                stats["mfu"])
+        if "goodput_pct" in stats:
+            logger.info(
+                "  goodput: %.1f%% productive step time of %.1f s wall "
+                "(eval %.2f / save %.2f s)", stats["goodput_pct"],
+                stats["wall_total_s"], stats["bucket_eval_s"],
+                stats["bucket_save_s"])
+        if "dispatch_counters" in stats:
+            logger.info("  dispatch counters: %s",
+                        stats["dispatch_counters"])
+        logger.info("-" * 60)
 
     # -- checkpoint -----------------------------------------------------
 
@@ -268,9 +436,12 @@ class Engine:
         meta = {"epoch": epoch, "step": self.step,
                 "consumed_samples": self.step * self.global_batch_size,
                 "seed": self.seed}
-        return ckpt.save_checkpoint(
+        t0 = time.time()
+        path = ckpt.save_checkpoint(
             self.output_dir, epoch, self.step, self.model.state_dict(),
             self.optimizer.state_dict() if self.optimizer else None, meta)
+        self._time_buckets["save"] += time.time() - t0
+        return path
 
     def load(self) -> None:
         """Restore the checkpoint ``ckpt_dir`` names (a step dir, or the

@@ -2,9 +2,12 @@
 of the JAX package's ``core/module.py``).
 
 A module builds its model (``get_model``) and computes its loss
-(``loss_fn``); the engine owns the step loop and calls the host-side
-hooks (``training_step_end``, ``validation_step_end``), which print the
-pinned ``[train]`` / ``[eval]`` lines (``utils/log.py``).
+(``loss_fn``) and its test output (``predict_step``, by default the
+eval-mode loss); the engine owns the step loop and calls the host-side
+hooks: ``pretreating_batch`` on each host batch before it moves to the
+device, and ``training_step_end``, ``validation_step_end`` and
+``test_step_end``, which print the pinned ``[train]`` / ``[eval]`` lines
+(``utils/log.py``) and the ``[test]`` line.
 """
 
 from __future__ import annotations
@@ -32,8 +35,26 @@ class BasicModule:
         dropout masks when ``train``)."""
         raise NotImplementedError
 
+    def predict_step(self, model, batch, seed):
+        """The test output of the collated ``batch`` for
+        ``Engine.predict``: the eval-mode loss by default (the JAX
+        ``predict_step``); override to return other predictions (a
+        tensor, or a dict with a ``loss`` entry for the log line)."""
+        return self.loss_fn(model, batch, seed, train=False)
+
+    def pretreating_batch(self, batch):
+        """Hook on each host batch before the engine moves it to the
+        device; returns the batch to use."""
+        return batch
+
+    def validation_step_end(self, log_dict: Dict[str, Any]) -> None:
+        """Hook after each evaluation batch."""
+
     def validation_epoch_end(self, log_dict: Dict[str, Any]) -> None:
         """Hook after an evaluation pass."""
+
+    def test_step_end(self, log_dict: Dict[str, Any]) -> None:
+        """Hook after each ``Engine.predict`` batch."""
 
     def training_epoch_end(self, log_dict: Dict[str, Any]) -> None:
         """Hook after a training epoch."""
@@ -67,4 +88,13 @@ class LanguageModule(BasicModule):
             "[eval] epoch: %d, batch: %d, loss: %.9f, avg_eval_cost: "
             "%.5f sec, speed: %.2f step/s", log_dict["epoch"],
             log_dict["batch"], log_dict["loss"], log_dict["eval_cost"],
+            speed)
+
+    def test_step_end(self, log_dict: Dict[str, Any]) -> None:
+        """Print the ``[test]`` line of one ``Engine.predict`` batch."""
+        speed = 1.0 / log_dict["test_cost"]
+        logger.info(
+            "[test] epoch: %d, batch: %d, loss: %.9f, avg_test_cost: "
+            "%.5f sec, speed: %.2f step/s", log_dict["epoch"],
+            log_dict["batch"], log_dict["loss"], log_dict["test_cost"],
             speed)

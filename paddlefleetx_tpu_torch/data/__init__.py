@@ -1,5 +1,6 @@
-"""Data layer of the port: the GPT dataset, its sampler and collate,
-the loader factories (counterparts of the JAX package's
+"""Data layer of the port: the GPT dataset, the offline evaluation
+datasets (WikiText LM, LAMBADA cloze), the sampler and the collates, the
+loader factories (counterparts of the JAX package's
 ``data/__init__.py``), and the tokenizer.
 
 The loader fetches and collates in the calling thread: on one GPU the
@@ -13,8 +14,15 @@ import copy
 from typing import Callable, Iterator
 
 from .dataset.gpt_dataset import GPTDataset
+from .dataset.gpt_dataset_eval import Lambada_Eval_Dataset, LM_Eval_Dataset
 from .sampler.batch_sampler import GPTBatchSampler
-from .sampler.collate import gpt_collate_fn
+from .sampler.collate import (  # noqa: F401
+    COLLATE_FNS, gpt_collate_fn, gpt_eval_collate_fn,
+)
+
+#: the datasets ``build_dataset`` takes by name; every other name raises
+DATASETS = {"GPTDataset": GPTDataset, "LM_Eval_Dataset": LM_Eval_Dataset,
+            "Lambada_Eval_Dataset": Lambada_Eval_Dataset}
 
 
 class DataLoader:
@@ -43,10 +51,10 @@ def build_dataset(config, mode: str):
         return None
     cfg = copy.deepcopy(dict(config[mode]["dataset"]))
     name = cfg.pop("name")
-    if name != "GPTDataset":
+    if name not in DATASETS:
         raise NotImplementedError(
-            f"dataset {name!r} is not ported (GPTDataset is)")
-    return GPTDataset(**cfg)
+            f"dataset {name!r} is not ported ({', '.join(DATASETS)} are)")
+    return DATASETS[name](**cfg)
 
 
 def build_dataloader(config, mode: str, num_replicas: int = 1,
@@ -63,11 +71,11 @@ def build_dataloader(config, mode: str, num_replicas: int = 1,
     loader_cfg = dict(config[mode].get("loader", {}) or {})
     collate = loader_cfg.get("collate_fn") or \
         config[mode].get("collate_fn") or "gpt_collate_fn"
-    if name != "GPTBatchSampler" or collate != "gpt_collate_fn":
+    if name != "GPTBatchSampler" or collate not in COLLATE_FNS:
         raise NotImplementedError(
             f"sampler {name!r} / collate_fn {collate!r} are not ported "
-            f"(GPTBatchSampler / gpt_collate_fn are)")
+            f"(GPTBatchSampler / {', '.join(COLLATE_FNS)} are)")
     sampler_cfg.setdefault("batch_size", 1)
     sampler = GPTBatchSampler(dataset, num_replicas=num_replicas, rank=rank,
                               **sampler_cfg)
-    return DataLoader(dataset, sampler, gpt_collate_fn)
+    return DataLoader(dataset, sampler, COLLATE_FNS[collate])

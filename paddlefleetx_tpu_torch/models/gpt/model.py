@@ -722,38 +722,52 @@ def _chunk_nll(h, word_emb, labels, loss_mask):
     return masked_nll_sums(tied_logits(h, word_emb), labels, loss_mask)
 
 
-def chunked_lm_loss(model: GPTForPretraining, input_ids: torch.Tensor,
-                    labels: torch.Tensor, loss_mask: torch.Tensor,
-                    chunks: int, position_ids=None,
-                    dropout_seed: Optional[int] = None,
-                    include_moe_aux: bool = True) -> torch.Tensor:
-    """The masked-CE loss with the LM head and softmax computed over
-    ``chunks`` sequence chunks, each under activation checkpointing: the
-    ``[b, s, V]`` logits never exist beyond ``[b, s / chunks, V]`` and
-    the backward recomputes each chunk's logits. The NLL sums are exact,
-    so without dropout this equals :func:`cross_entropy_loss` of the
-    full logits. An MoE model's router loss is added when
-    ``include_moe_aux`` (training), as in the JAX package."""
-    b, s = input_ids.shape
-    if s % chunks:
-        raise ValueError(f"loss_chunks ({chunks}) must divide the sequence "
-                         f"length ({s})")
-    h, aux = model.gpt(input_ids, position_ids, dropout_seed=dropout_seed,
-                       return_aux=True)
-    csz = s // chunks
+def chunked_nll_sums(h: torch.Tensor, word_emb: torch.Tensor,
+                     labels: torch.Tensor, loss_mask: torch.Tensor,
+                     chunks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The :func:`masked_nll_sums` of the tied LM head on the final
+    hidden states ``h`` ``[b, s, hidden]``, the head and its softmax
+    computed over ``chunks`` sequence chunks of ``ceil(s / chunks)``
+    positions:
+    the ``[b, s, V]`` logits never exist beyond one chunk. Under autograd
+    each chunk runs under activation checkpointing, so the backward
+    recomputes its logits. The sums are exact."""
+    s = h.shape[1]
+    step = -(-s // max(chunks, 1))
     nll = msum = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c in range(chunks):
-        sl = slice(c * csz, (c + 1) * csz)
-        args = (h[:, sl], model.word_embeddings, labels[:, sl],
-                loss_mask[:, sl])
+    for start in range(0, s, step):
+        sl = slice(start, start + step)
+        args = (h[:, sl], word_emb, labels[:, sl], loss_mask[:, sl])
         if torch.is_grad_enabled():
             n, m = ckpt.checkpoint(_chunk_nll, *args, use_reentrant=False,
                                    preserve_rng_state=False)
         else:
             n, m = _chunk_nll(*args)
         nll, msum = nll + n, msum + m
+    return nll, msum
+
+
+def chunked_lm_loss(model: GPTForPretraining, input_ids: torch.Tensor,
+                    labels: torch.Tensor, loss_mask: torch.Tensor,
+                    chunks: int, position_ids=None,
+                    dropout_seed: Optional[int] = None,
+                    return_aux: bool = True) -> torch.Tensor:
+    """The masked-CE loss with the LM head over ``chunks`` sequence
+    chunks (:func:`chunked_nll_sums`). Without dropout this equals
+    :func:`cross_entropy_loss` of the full logits. With ``return_aux``
+    (training) an MoE model computes its router loss and adds it, as in
+    the JAX package; without it the router loss is not computed."""
+    b, s = input_ids.shape
+    if s % chunks:
+        raise ValueError(f"loss_chunks ({chunks}) must divide the sequence "
+                         f"length ({s})")
+    h = model.gpt(input_ids, position_ids, dropout_seed=dropout_seed,
+                  return_aux=return_aux)
+    h, aux = h if return_aux else (h, None)
+    nll, msum = chunked_nll_sums(h, model.word_embeddings, labels,
+                                 loss_mask, chunks)
     loss = nll / msum.clamp_min(1.0)
-    return loss + aux if include_moe_aux and aux is not None else loss
+    return loss + aux if aux is not None else loss
 
 
 @torch.no_grad()
