@@ -119,6 +119,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -168,11 +169,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def kernel_events(prof, label):
+def kernel_events(prof, label, cats=("kernel",)):
     """The device kernel events (``ts``, ``dur`` in us, ``name``) of a
-    finished ``torch.profiler`` run, read from its Chrome trace, which
-    is kept gzipped as ``trace_<label>.json.gz`` in ``OUT_DIR`` (the
-    windows' raw traces together run to tens of MiB)."""
+    finished ``torch.profiler`` run (or its events of the categories
+    ``cats``), read from its Chrome trace, which is kept gzipped as
+    ``trace_<label>.json.gz`` in ``OUT_DIR`` (the windows' raw traces
+    together run to tens of MiB)."""
     import gzip
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, f"trace_{label}.json")
@@ -183,7 +185,7 @@ def kernel_events(prof, label):
     with gzip.open(path + ".gz", "wb") as f:
         f.write(raw)
     return [e for e in json.loads(raw).get("traceEvents", [])
-            if e.get("cat") == "kernel" and "dur" in e]
+            if e.get("cat") in cats and "dur" in e]
 
 
 #: spin lengths (GPU clock cycles, ~5 ms and up at H100 clocks) that
@@ -1850,12 +1852,21 @@ def seeded_prompts(n, lo, hi, vocab, seed):
             for m in rng.integers(lo, hi + 1, size=n)]
 
 
+def launched_ticks(summary) -> int:
+    """The decode ticks a server launched: one a tick at T = 1; with
+    ``device_loop_ticks`` > 1 every loop iteration, a masked one past
+    the loop's exit too, plus the eager warm-up tick before a capture
+    (:class:`~paddlefleetx_tpu_torch.core.decode_graph.TickGraph`)."""
+    return summary.get("ticks_replayed", summary["decode_ticks"]) + \
+        summary.get("graph_warmups", 0)
+
+
 def check_serve_counts(counts, summary, layers, label):
     """Every admission was one kernel-1 launch per layer, every tick one
     kernel-2 launch per layer, and nothing took the dense path."""
     c = counts["counters"]
     want = {"flash_attention": summary["admitted"] * layers,
-            "flash_decode": summary["decode_ticks"] * layers}
+            "flash_decode": launched_ticks(summary) * layers}
     for name, n in want.items():
         if counts[name] != n or n == 0:
             raise AssertionError(f"{label}: {name} launched {counts[name]} "
@@ -1931,6 +1942,8 @@ def phase_serve(device="cuda", overrides=(), requests=16, slots=8,
     if device != "cpu":
         record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     emit(record)
+    record["prompts"] = prompts
+    record["tokens"] = [c.tokens for c in completions]
     return record, module
 
 
@@ -1957,12 +1970,94 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def profile_window(torch, label, fn, steps):
+#: a hand-written kernel's name in a device trace: its function and
+#: template arguments
+_KERNEL_NAME = re.compile(r"::(\w+)(?:<([^<>]*)>)?\(")
+#: the wrappers' count keys of kernels 7, 8 and 9, by function prefix
+_GEMM_PREFIX = {"qmm": "quantized_matmul", "gmm_dw": "grouped_matmul_dw",
+                "gmm": "grouped_matmul"}
+#: kernel 1's functions, by route
+_FWD_ROUTE = {"flash_fwd_wgmma": "wgmma", "flash_fwd_mma_kernel": "mma",
+              "flash_fwd_kernel": "f32"}
+
+
+def trace_keys(name):
+    """The launch keys (:func:`counted_launches`) that one device trace
+    event of a hand-written kernel counts under, from its demangled
+    name; ``()`` for any other kernel. A kernel counts under its
+    wrapper's key and ``{key}/{route}``; kernels 2, 5, 6a and 6b are one
+    templated body, counted under ``decode_{paged|contiguous}_{int8|plain}``
+    by layout and cache type and ``decode_{layout}/{route}``."""
+    m = _KERNEL_NAME.search(name)
+    if not m:
+        return ()
+    fn = m.group(1)
+    args = [a.strip() for a in (m.group(2) or "").split(",")]
+    if fn in ("decode_kernel", "decode_kernel_mma"):
+        layout = "paged" if args[-1] == "true" else "contiguous"
+        cache = "int8" if "signed char" in args else "plain"
+        route = "mma" if fn.endswith("_mma") else "simt"
+        return f"decode_{layout}_{cache}", f"decode_{layout}/{route}"
+    gemm = re.fullmatch(r"(qmm|gmm_dw|gmm)_(\w+)_kernel", fn)
+    if gemm:
+        key = _GEMM_PREFIX[gemm.group(1)]
+        if key == "quantized_matmul" and args[0] == "true":
+            key += "_dx"
+        return key, f"{key}/{gemm.group(2)}"
+    if fn in _FWD_ROUTE:
+        return "flash_attention", f"flash_attention/{_FWD_ROUTE[fn]}"
+    for key in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if fn.startswith(key + "_"):
+            return (key,)
+    return ()
+
+
+def counted_launches(counts) -> dict:
+    """The wrappers' counts of :func:`read_counts` under
+    :func:`trace_keys`'s keys, zeros dropped."""
+    out = {"flash_bwd_dkv": counts["flash_bwd_dkv"],
+           "flash_bwd_dq": counts["flash_bwd_dq"]}
+    for key in ("flash_attention", "quantized_matmul", "quantized_matmul_dx",
+                "grouped_matmul", "grouped_matmul_dw"):
+        out[key] = counts[key]
+        for route, n in counts[f"{key}_routes"].items():
+            out[f"{key}/{route}"] = n
+    for layout, names in (("contiguous", DECODE_KERNELS[:2]),
+                          ("paged", DECODE_KERNELS[2:])):
+        out[f"decode_{layout}_plain"] = sum(counts[n] for n in names)
+        out[f"decode_{layout}_int8"] = sum(counts[n + "_int8"]
+                                           for n in names)
+        for route in ("mma", "simt"):
+            out[f"decode_{layout}/{route}"] = sum(
+                counts[n + "_routes"].get(route, 0) for n in names)
+    return {k: n for k, n in out.items() if n}
+
+
+def check_traced_launches(label, traced, counts) -> dict:
+    """Hold the launches read from a device trace (``traced``, by
+    :func:`trace_keys`) to what the wrappers counted over the same
+    window (``counts``, :func:`read_counts`), key by key: kernel, route,
+    layout and cache type. Graph replays run no Python, so their
+    counts are the captured tick's added once a replay; this is the
+    measurement that backs them. Returns ``traced``."""
+    want = counted_launches(counts)
+    if not want or traced != want:
+        raise AssertionError(f"{label}: hand-written kernels in the device "
+                             f"trace {traced} differ from the wrappers' "
+                             f"counts {want}")
+    return traced
+
+
+def profile_window(torch, label, fn, steps, runtime=False):
     """Run ``fn`` under ``torch.profiler`` (device activity only) and
     return where the device time went: the window's host time, the union
     of its device kernel spans, the idle share, the kernel time by
-    category and of the costliest kernels, and the kernels launched per
-    step. The trace goes to ``chiprun_out/chip_smoke/``."""
+    category and of the costliest kernels, the kernels launched per
+    step, and the hand-written kernels' launches by :func:`trace_keys`
+    (``traced_launches``); with ``runtime`` also the CUDA runtime's
+    launch calls by name (graph launches against kernel launches). The
+    trace goes to
+    ``chiprun_out/chip_smoke/``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1970,7 +2065,16 @@ def profile_window(torch, label, fn, steps):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = kernel_events(prof, label)
+    events = kernel_events(prof, label, ("kernel", "cuda_runtime"))
+    calls = {}
+    for e in events:
+        if e["cat"] == "cuda_runtime" and "Launch" in e["name"]:
+            calls[e["name"]] = calls.get(e["name"], 0) + 1
+    events = [e for e in events if e["cat"] == "kernel"]
+    traced = {}
+    for e in events:
+        for key in trace_keys(e["name"]):
+            traced[key] = traced.get(key, 0) + 1
     by_cat = {name: 0.0 for name, _ in KERNEL_CATEGORIES}
     by_cat["other"] = 0.0
     by_name = {}
@@ -1982,13 +2086,17 @@ def profile_window(torch, label, fn, steps):
         by_name[e["name"][:80]] = (ms + e["dur"] / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in events])
-    return {"window": label, "steps": steps, "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / wall_us if events else None,
-            "kernel_ms": {k: v / 1e3 for k, v in by_cat.items()},
-            "top_kernels": [{"name": k, "ms": ms, "launches": n}
-                            for k, (ms, n) in top],
-            "kernels_per_step": len(events) / steps}
+    out = {"window": label, "steps": steps, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / wall_us if events else None,
+           "kernel_ms": {k: v / 1e3 for k, v in by_cat.items()},
+           "top_kernels": [{"name": k, "ms": ms, "launches": n}
+                           for k, (ms, n) in top],
+           "kernels_per_step": len(events) / steps,
+           "traced_launches": traced}
+    if runtime:
+        out["runtime_launch_calls"] = calls
+    return out
 
 
 def phase_profile(module, slots=8, ticks=16):
@@ -2285,7 +2393,7 @@ def check_paged_counts(counts, summary, layers, label, kernel):
     gather + dense route once per layer each (the JAX package's route),
     a contiguous one's admissions kernel 1; no other fallback fired."""
     c = counts["counters"]
-    ticks = summary["decode_ticks"] * layers
+    ticks = launched_ticks(summary) * layers
     others = set(DECODE_COUNTS) - {kernel}
     if counts[kernel] != ticks or ticks == 0 or \
             any(counts.get(k, 0) for k in others):
@@ -2325,9 +2433,10 @@ TICK_COUNTERS = {
 
 
 def server_forwards(summary) -> int:
-    """A server run's model forwards: one a decode tick, plus one a
-    prefill chunk (paged) or an admission (contiguous)."""
-    return summary["decode_ticks"] + (summary["prefill_chunks"]
+    """A server run's model forwards: one a launched decode tick
+    (:func:`launched_ticks`), plus one a prefill chunk (paged) or an
+    admission (contiguous)."""
+    return launched_ticks(summary) + (summary["prefill_chunks"]
                                       if summary.get("paged")
                                       else summary["admitted"])
 
@@ -2358,7 +2467,7 @@ def check_int8_counts(counts, summary, layers, label, kernel, cfg):
     c = counts["counters"]
     if cfg.kv_cache_dtype == "int8":
         name = TICK_COUNTERS[kernel[:-len("_int8")]] + "_int8"
-        ticks = summary["decode_ticks"] * layers
+        ticks = launched_ticks(summary) * layers
         if c.get(name, 0) != ticks:
             raise AssertionError(f"{label}: {name} {c.get(name)} for "
                                  f"{ticks} layer-ticks")
@@ -2369,7 +2478,8 @@ def check_int8_counts(counts, summary, layers, label, kernel, cfg):
 
 def serve_trace(module, label, device, spec=False, paged=True, slots=None,
                 pool_pages=None, requests=None, max_dec_len=None,
-                adapters=None, warm=True):
+                adapters=None, warm=True, loop_ticks=1, draft=None,
+                trace=False):
     """The headline trace twice on fresh servers, warm then measured
     (the counts zeroed just before the measured ``run``, read just
     after); checks that every request finished with in-vocab tokens, that
@@ -2379,8 +2489,11 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
     ``(source, ids)``, serves request ``i`` through adapter ``ids[i %
     len(ids)]`` (:func:`check_lora_counts`); ``warm`` False skips the
     warm run, an int cuts it to that many requests of 8 new tokens.
-    Returns the measured record, with the completions' tokens added
-    after it is printed."""
+    ``loop_ticks`` is the servers' ``device_loop_ticks``, ``draft`` a
+    draft source in place of the n-gram one; ``trace`` runs the trace
+    once more under ``torch.profiler`` (:func:`traced_rerun`). Returns
+    the measured record, with the completions' tokens added after it is
+    printed."""
     import dataclasses
     import torch
     from paddlefleetx_tpu_torch.core.serving import GenerationServer
@@ -2395,6 +2508,7 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
     slots = slots or hl["slots"]
     kw = dict(page_size=hl["page"], pool_pages=pool_pages or hl["pool_pages"],
               prefill_chunk_pages=hl["prefill_chunk_pages"]) if paged else {}
+    kw["device_loop_ticks"] = loop_ticks
     prompts = headline_prompts(cfg.vocab_size, requests or hl["requests"],
                                hl["lo"], hl["hi"], hl["seed"])
     ids = None
@@ -2408,8 +2522,13 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
         GenerationServer(module.model, wcfg, num_slots=slots,
                          seed=module.seed, **kw).run(
             prompts[:n], ids and ids[:n])
-    server = GenerationServer(module.model, gcfg, num_slots=slots,
-                              seed=module.seed, **kw)
+    def make_server():
+        server = GenerationServer(module.model, gcfg, num_slots=slots,
+                                  seed=module.seed, **kw)
+        if draft is not None:
+            server._draft = draft
+        return server
+    server = make_server()
     reset_counts()
     t0 = time.perf_counter()
     completions = server.run(prompts, ids)
@@ -2478,7 +2597,10 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
         "launches_by_route": routes_by_kernel(counts),
         "forwards": server_forwards(summary),
         "counters": counts["counters"]}
-    for key in ("prefill_chunks", "prefix_hits", "prompt_hits", "cow_splits",
+    for key in ("device_loop_ticks", "device_ticks", "host_roundtrips",
+                "ticks_replayed", "graph_warmups", "host_roundtrip_p50_ms",
+                "host_roundtrip_p99_ms",
+                "prefill_chunks", "prefix_hits", "prompt_hits", "cow_splits",
                 "preempted", "pages_in_use", "pool_pages", "pool_bytes",
                 "spec_drafted", "spec_accepted", "spec_accept_rate",
                 "adapter_rows", "adapters_resident", "adapter_hits",
@@ -2487,11 +2609,20 @@ def serve_trace(module, label, device, spec=False, paged=True, slots=None,
             record[key] = summary[key]
     if ids is not None:
         record["adapter_ids"] = sorted(set(ids))
+    if trace:
+        record["traced_launches"] = traced_rerun(
+            label, make_server, prompts, ids, [c.tokens for c in completions])
     if device != "cpu":
         record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     emit(record)
     record["tokens"] = [c.tokens for c in completions]
     return record
+
+
+#: the warm run of a serving phase before its measured one: 4 requests
+#: of 8 new tokens, the measured run's tick and chunk shapes (the whole
+#: trace again cost ~50 s of set-up on a slow host)
+WARM = 4
 
 
 def phase_serve_paged(device="cuda", overrides=()):
@@ -2502,7 +2633,7 @@ def phase_serve_paged(device="cuda", overrides=()):
     recipe's ``Model.kv_page_size`` / ``kv_pool_pages`` instead)."""
     module = serving_module(device, [
         f"Generation.max_dec_len={HEADLINE['max_dec_len']}", *overrides])
-    return serve_trace(module, "serve_paged", device), module
+    return serve_trace(module, "serve_paged", device, warm=WARM), module
 
 
 #: the most of its drafts ``serve_spec`` may accept. On the trace's
@@ -2517,8 +2648,9 @@ def phase_serve_spec(module, device="cuda"):
     """The same trace with n-gram speculation (4 drafts a tick), paged,
     then on the contiguous cache with 8 slots; each run's accept rate
     is held under ``SPEC_ACCEPT_LIMIT``."""
-    paged = serve_trace(module, "serve_spec", device, spec=True)
+    paged = serve_trace(module, "serve_spec", device, spec=True, warm=WARM)
     contiguous = serve_trace(module, "serve_spec", device, spec=True,
+                             warm=WARM,
                              paged=False,
                              slots=HEADLINE["contiguous_spec_slots"])
     for run in (paged, contiguous):
@@ -2573,6 +2705,269 @@ def phase_profile_paged(module, ticks=16, pool_pages=None, suffix=""):
     emit({"phase": "profile_paged" + suffix, "slots": hl["slots"],
           "pool_pages": pool_pages or hl["pool_pages"], "windows": windows})
     return windows
+
+
+# -- serve_loop: the device-resident loop on the serving paths -----------
+
+#: ticks a host round trip of the ``serve_loop`` arms
+LOOP_TICKS = 16
+#: the token the ``serve_loop`` speculative arm drafts
+CONST_DRAFT = 17
+#: the summary figures a ``serve_loop`` arm prints beside its T = 1 run
+LOOP_KEYS = ("decode_tokens_per_s", "e2e_tokens_per_s", "tick_p50_ms",
+             "tick_p99_ms", "host_roundtrip_p50_ms", "host_roundtrip_p99_ms",
+             "ttft_p50_ms", "ttft_p99_ms", "decode_ticks", "device_ticks",
+             "host_roundtrips", "ticks_replayed", "graph_warmups", "wall_s")
+
+
+class ConstDraft:
+    """A draft source that proposes one token whatever the history: the
+    ``k T`` drafts a round trip of T ticks asks for are T copies of what
+    T = 1 asks for each tick, so a sampling speculative server draws the
+    same tokens at any T (an n-gram source drafts every tick of a round
+    trip from the pre-loop history, which moves the accept draws)."""
+
+    def propose(self, history, k):
+        """``k`` copies of ``CONST_DRAFT``."""
+        return [CONST_DRAFT] * k
+
+
+def check_loop_run(rec, t1, label, model, prompts, eos, device):
+    """Hold a ``serve_loop`` arm to its T = 1 run: every row token-equal
+    (:func:`compare_rows`: a differing row prints its first divergence
+    and top-2 gap and fails unless that is a near-tie), fewer round
+    trips than ticks, every round trip booked under one loop exit, and
+    (on the card) one eager warm-up before the capture; the launch
+    counts were held exact by :func:`serve_trace`. Prints the arm's
+    figures beside the T = 1 run's and returns them."""
+    compare_rows(label, model, prompts, rec["tokens"], t1["tokens"], eos)
+    c = rec["counters"]
+    exits = {r: c.get(f"serving/loop_exit/{r}", 0)
+             for r in ("finished", "budget", "admission")}
+    if sum(exits.values()) != rec["host_roundtrips"] or \
+            not rec["host_roundtrips"] < rec["device_ticks"] or \
+            rec["ticks_replayed"] < rec["device_ticks"] or \
+            rec["graph_warmups"] != int(device != "cpu") or \
+            c.get("serving/device_ticks", 0) != rec["device_ticks"]:
+        raise AssertionError(f"{label}: exits {exits}, round trips "
+                             f"{rec['host_roundtrips']}, ticks "
+                             f"{rec['device_ticks']}, replayed "
+                             f"{rec['ticks_replayed']}, warm-ups "
+                             f"{rec['graph_warmups']}")
+    line = {"phase": "serve_loop", "arm": label, "loop_ticks": LOOP_TICKS,
+            "rows_equal_t1": True, "loop_exit": exits,
+            "launches": rec["launches"],
+            "launches_by_route": rec.get("launches_by_route"),
+            "traced_launches": rec.get("traced_launches"),
+            **{k: rec.get(k) for k in LOOP_KEYS},
+            "t1": {k: t1.get(k) for k in LOOP_KEYS}}
+    emit(line)
+    return line
+
+
+def phase_serve_loop_contiguous(module, serve, device="cuda"):
+    """``serve_loop``'s contiguous arm on the serve phase's module: its
+    prompts, greedy, again at ``LOOP_TICKS`` ticks a round trip, each
+    row equal to the serve phase's (its record holds prompts and rows
+    after it is printed), kernel 1
+    once a layer and admission and kernel 2 once a layer and launched
+    tick; then the same run again under ``torch.profiler``
+    (:func:`traced_rerun`)."""
+    import torch
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    cfg = module.model_config
+    prompts = serve["prompts"]
+
+    def make_server():
+        return GenerationServer(module.model, module.generation_cfg,
+                                num_slots=serve["slots"], seed=module.seed,
+                                device_loop_ticks=LOOP_TICKS)
+    server = make_server()
+    reset_counts()
+    t0 = time.perf_counter()
+    completions = server.run(prompts)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    summary = server.summary()
+    check_serve_counts(counts, summary, cfg.num_layers,
+                       "serve_loop_contiguous")
+    check_decode_routes(counts, "serve_loop_contiguous", cfg.dtype)
+    rec = {**summary, "counters": counts["counters"], "wall_s": wall,
+           "decode_tokens_per_s": summary["tokens_per_sec"],
+           "e2e_tokens_per_s": sum(len(c.tokens) for c in completions) / wall,
+           "launches": {"flash_attention": counts["flash_attention"],
+                        "flash_decode": counts["flash_decode"]},
+           "tokens": [c.tokens for c in completions]}
+    rec["traced_launches"] = traced_rerun(
+        "serve_loop_contiguous", make_server, prompts, None, rec["tokens"])
+    t1 = dict(serve, tick_p50_ms=serve.get("decode_tick_p50_ms"),
+              tick_p99_ms=serve.get("decode_tick_p99_ms"))
+    return check_loop_run(rec, t1, "serve_loop_contiguous", module.model,
+                          prompts, module.generation_cfg.eos_token_id,
+                          device)
+
+
+def phase_serve_loop_paged(module, serve_paged, t1_windows, device="cuda"):
+    """``serve_loop``'s dense paged arms on the ``serve_paged`` module:
+    the headline trace with the recipe's sampling at ``LOOP_TICKS``
+    against ``serve_paged``'s rows; the trace paged and speculative
+    with a constant draft (:class:`ConstDraft`) at T = 1 and at
+    ``LOOP_TICKS``; then one round trip of each profiled
+    (:func:`profile_loop`) beside the T = 1 windows ``t1_windows`` of
+    ``profile_paged``. Returns the arms' lines."""
+    hl = HEADLINE
+    prompts = headline_prompts(module.model_config.vocab_size,
+                               hl["requests"], hl["lo"], hl["hi"],
+                               hl["seed"])
+    eos = module.generation_cfg.eos_token_id
+    arms = {}
+    rec = serve_trace(module, "serve_loop_paged", device, warm=False,
+                      loop_ticks=LOOP_TICKS)
+    arms["paged"] = check_loop_run(rec, serve_paged, "serve_loop_paged",
+                                   module.model, prompts, eos, device)
+    t1 = serve_trace(module, "serve_loop_spec_t1", device, spec=True,
+                     warm=False, draft=ConstDraft())
+    rec = serve_trace(module, "serve_loop_spec", device, spec=True,
+                      warm=False, loop_ticks=LOOP_TICKS, draft=ConstDraft())
+    arms["paged_spec"] = check_loop_run(rec, t1, "serve_loop_spec",
+                                        module.model, prompts, eos, device)
+    t1_window = {w["window"]: w for w in t1_windows}
+    arms["profile"] = profile_loop(module, t1_window["decode_paged"],
+                                   device)
+    arms["profile_spec"] = profile_loop(
+        module, t1_window["verify_paged"], device, "verify_paged_loop",
+        spec=True)
+    return arms
+
+
+def profile_loop(module, t1, device="cuda", label="decode_paged_loop",
+                 spec=False, adapters=None):
+    """Where a round trip of ``LOOP_TICKS`` ticks goes, once the queue is
+    empty: the headline server fed its first 16 prompts at
+    ``LOOP_TICKS`` ticks a round trip (``spec``: speculative with a
+    constant draft; ``adapters``, ``(source, ids)``: prompt ``i`` on
+    adapter ``ids[i % len(ids)]``), stepped until every slot decodes and
+    once more (the capture), then one round trip under
+    ``torch.profiler``: the device's busy and idle share, kernels a
+    tick, and the CUDA runtime's graph launches against its kernel
+    launches, printed beside ``t1``, the T = 1 window of the same path
+    in the same call. Every hand-written kernel's events in the trace
+    must equal its wrapper's counts (:func:`check_traced_launches`), and
+    the decode kernel's ``layers`` x replayed ticks."""
+    import dataclasses
+    import torch
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    hl = HEADLINE
+    cfg = module.model_config
+    gcfg = module.generation_cfg
+    if spec:
+        gcfg = dataclasses.replace(gcfg, spec_method="ngram",
+                                   spec_tokens=hl["spec_tokens"])
+    prompts = headline_prompts(cfg.vocab_size, hl["requests"], hl["lo"],
+                               hl["hi"], hl["seed"])[:hl["slots"]]
+    server = GenerationServer(
+        module.model, gcfg, num_slots=hl["slots"],
+        seed=module.seed, page_size=hl["page"], pool_pages=hl["pool_pages"],
+        prefill_chunk_pages=hl["prefill_chunk_pages"],
+        device_loop_ticks=LOOP_TICKS,
+        adapter_source=adapters[0] if adapters else None)
+    if spec:
+        server._draft = ConstDraft()
+    for i, p in enumerate(prompts):
+        server.submit(p, adapter_id=adapters[1][i % len(adapters[1])]
+                      if adapters else 0)
+    while server.pending or server._prefilling:
+        server.step()
+    server.step()
+    before = server.summary()
+    reset_counts()
+    window = profile_window(torch, label, server.step, LOOP_TICKS,
+                            runtime=device != "cpu")
+    counts = read_counts()
+    after = server.summary()
+    replays = after["ticks_replayed"] - before["ticks_replayed"]
+    ticks = after["device_ticks"] - before["device_ticks"]
+    window["steps"] = replays
+    window["kernels_per_step"] *= LOOP_TICKS / max(replays, 1)
+    window.update({"graph_replays": replays, "ticks_run": ticks,
+                   "occupancy": server.occupancy,
+                   "launches_by_route": routes_by_kernel(counts)})
+    kernel = "flash_decode_paged_verify" if spec else "flash_decode_paged"
+    if counts[kernel] != replays * cfg.num_layers:
+        raise AssertionError(f"{label}: {kernel} launched {counts[kernel]} "
+                             f"times for {replays} replayed ticks")
+    check_traced_launches(label, window["traced_launches"], counts)
+    keys = ("window", "wall_ms", "device_busy_ms", "idle_share",
+            "kernels_per_step", "steps")
+    emit({"phase": "profile_loop", "loop_ticks": LOOP_TICKS,
+          "windows": [window], "t1": {k: t1.get(k) for k in keys},
+          "tick_ms": window["wall_ms"] / max(ticks, 1),
+          "tick_ms_t1": t1["wall_ms"] / t1["steps"],
+          "busy_ms_per_tick": window["device_busy_ms"] / max(ticks, 1),
+          "busy_ms_per_tick_t1": t1["device_busy_ms"] / t1["steps"]})
+    return window
+
+
+def traced_rerun(label, make_server, prompts, ids, rows):
+    """A measured ``serve_loop`` run again, on ``make_server()`` under
+    ``torch.profiler``: the same ``rows``, and every hand-written
+    kernel's events in the device trace, graph replays included, equal
+    to what its wrapper counted in that run
+    (:func:`check_traced_launches`). Returns the traced launches."""
+    import torch
+    server = make_server()
+    done = []
+    reset_counts()
+    window = profile_window(torch, label + "_traced",
+                            lambda: done.extend(server.run(prompts, ids)), 1)
+    counts = read_counts()
+    if [c.tokens for c in done] != rows:
+        raise AssertionError(f"{label}: the traced rerun's rows differ "
+                             f"from the measured run's")
+    return check_traced_launches(label, window["traced_launches"], counts)
+
+
+def phase_serve_loop_int8(module, runs, device="cuda", short=None):
+    """``serve_loop``'s int8 arms on the ``serve_int8`` module (both int8
+    knobs): the headline trace paged at ``LOOP_TICKS`` against
+    ``serve_int8``'s paged rows, then ``short`` paged speculative arms
+    with a constant draft at T = 1 and at ``LOOP_TICKS``, so that kernel
+    7's ``wgmma`` route (the verify window's M 80), whose TMA maps the
+    host encodes at each call, replays from the graph too (``short``:
+    ``INT8_SHORT`` by default), the latter again under the profiler
+    (:func:`traced_rerun`). Returns the arms' lines."""
+    short = short or INT8_SHORT
+    pages = runs["paged"]["pool_pages"]
+    arms = {"int8": serve_loop_arm(module, "serve_loop_int8", runs["paged"],
+                                   device, pool_pages=pages)}
+    t1 = serve_trace(module, "serve_loop_int8_spec_t1", device, spec=True,
+                     pool_pages=pages, warm=False, draft=ConstDraft(),
+                     **short)
+    arms["int8_spec"] = serve_loop_arm(
+        module, "serve_loop_int8_spec", t1, device, spec=True,
+        pool_pages=pages, draft=ConstDraft(), trace=True, **short)
+    if arms["int8_spec"]["launches_by_route"]["quantized_matmul"].get(
+            "wgmma", 0) == 0:
+        raise AssertionError("serve_loop_int8_spec: no kernel 7 launch "
+                             "took the wgmma route")
+    return arms
+
+
+def serve_loop_arm(module, label, t1, device="cuda", **kw):
+    """One ``serve_loop`` arm through :func:`serve_trace` (no warm run:
+    the T = 1 phase before it warmed the kernels) at ``LOOP_TICKS``
+    ticks a round trip, held to that phase's T = 1 record ``t1``
+    (:func:`check_loop_run`)."""
+    hl = HEADLINE
+    prompts = headline_prompts(module.model_config.vocab_size,
+                               kw.get("requests") or hl["requests"],
+                               hl["lo"], hl["hi"], hl["seed"])
+    rec = serve_trace(module, label, device, warm=False,
+                      loop_ticks=LOOP_TICKS, **kw)
+    return check_loop_run(rec, t1, label, module.model, prompts,
+                          module.generation_cfg.eos_token_id, device)
 
 
 def _first_divergence(got, want, eos):
@@ -2727,15 +3122,15 @@ def phase_serve_int8(bf16_paged, device="cuda", overrides=(),
     cfg = module.model_config
     pages, budget = int8_pool_pages(cfg, hl["pool_pages"], hl["page"])
     runs = {"paged": serve_trace(module, "serve_int8", device,
-                                 pool_pages=pages)}
+                                 pool_pages=pages, warm=WARM)}
     runs["contiguous"] = serve_trace(
         module, "serve_int8", device, paged=False,
-        slots=hl["contiguous_spec_slots"], **short)
+        slots=hl["contiguous_spec_slots"], warm=WARM, **short)
     runs["contiguous_spec"] = serve_trace(
         module, "serve_int8", device, spec=True, paged=False,
-        slots=hl["contiguous_spec_slots"], **short)
+        slots=hl["contiguous_spec_slots"], warm=WARM, **short)
     runs["paged_spec"] = serve_trace(module, "serve_int8", device, spec=True,
-                                     pool_pages=pages, **short)
+                                     pool_pages=pages, warm=WARM, **short)
     for name in ("contiguous_spec", "paged_spec"):
         rate = runs[name]["spec_accept_rate"]
         if not 0.0 <= rate <= SPEC_ACCEPT_LIMIT:
@@ -5402,6 +5797,20 @@ def eval_rows(rows, evals) -> None:
         [k8["max_abs_err"]] + [c["max_abs_err"] for c in evals["gmm"]])
 
 
+#: each phase's wall seconds, by name, as :func:`timed` printed them
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args, **kw):
+    """Run one phase and print its wall seconds on a line of its own
+    (``{"phase_seconds": name, "s": ...}``)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    emit({"phase_seconds": name, "s": PHASE_SECONDS[name]})
+    return out
+
+
 def main() -> int:
     """Run every phase; return 0 only when all of them passed."""
     import torch
@@ -5412,92 +5821,116 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    phase_build()
-    fwd, dec = phase_kernels()
-    window = phase_decode_kernels()
-    dec8, window8 = phase_int8_decode_kernels()
-    qmm_cases = phase_kernel_qmm()
-    qmm_dx_cases = phase_kernel_qmm_dx()
-    gmm_cases = phase_kernel_gmm()
-    gmm_serve = phase_kernel_gmm_serving()
-    gmm_lora = phase_kernel_gmm_lora()
-    fwd_eval, gmm_eval = phase_kernels_eval()
-    fwd_drop = phase_kernel1_dropout()
-    bwd = phase_backward()
+    timed("build", phase_build)
+    fwd, dec = timed("kernels", phase_kernels)
+    window = timed("decode_kernels", phase_decode_kernels)
+    dec8, window8 = timed("int8_decode_kernels", phase_int8_decode_kernels)
+    qmm_cases = timed("kernel_qmm", phase_kernel_qmm)
+    qmm_dx_cases = timed("kernel_qmm_dx", phase_kernel_qmm_dx)
+    gmm_cases = timed("kernel_gmm", phase_kernel_gmm)
+    gmm_serve = timed("kernel_gmm_serving", phase_kernel_gmm_serving)
+    gmm_lora = timed("kernel_gmm_lora", phase_kernel_gmm_lora)
+    fwd_eval, gmm_eval = timed("kernels_eval", phase_kernels_eval)
+    fwd_drop = timed("kernel1_dropout", phase_kernel1_dropout)
+    bwd = timed("backward", phase_backward)
     torch.cuda.empty_cache()
-    serve, module = phase_serve()
-    phase_profile(module)
+    serve, module = timed("serve", phase_serve)
+    timed("profile", phase_profile, module)
+    loop = {"contiguous": timed("serve_loop_contiguous",
+                                phase_serve_loop_contiguous, module, serve)}
     del module
-    phase_serve_cli()
-    phase_parity()
-    phase_generate_cli()
+    timed("serve_cli", phase_serve_cli)
+    timed("parity", phase_parity)
+    timed("generate_cli", phase_generate_cli)
     torch.cuda.empty_cache()
-    serve_paged, module = phase_serve_paged()
-    spec = phase_serve_spec(module)
-    phase_profile_paged(module)
+    serve_paged, module = timed("serve_paged", phase_serve_paged)
+    spec = timed("serve_spec", phase_serve_spec, module)
+    paged_windows = timed("profile_paged", phase_profile_paged, module)
+    loop.update(timed("serve_loop_paged", phase_serve_loop_paged, module,
+                      serve_paged, paged_windows))
     del module
-    phase_serve_cli(paged_spec=True)
+    timed("serve_cli_paged_spec", phase_serve_cli, paged_spec=True)
     torch.cuda.empty_cache()
-    phase_parity_paged()
+    timed("parity_paged", phase_parity_paged)
     torch.cuda.empty_cache()
-    int8_runs, module = phase_serve_int8(serve_paged)
-    phase_profile_paged(module, pool_pages=int8_runs["paged"]["pool_pages"],
-                        suffix="_int8")
+    int8_runs, module = timed("serve_int8", phase_serve_int8, serve_paged)
+    timed("profile_paged_int8", phase_profile_paged, module,
+          pool_pages=int8_runs["paged"]["pool_pages"], suffix="_int8")
+    loop.update(timed("serve_loop_int8", phase_serve_loop_int8, module,
+                      int8_runs))
     del module
     torch.cuda.empty_cache()
-    phase_serve_cli(int8=True)
-    phase_parity_int8()
+    timed("serve_cli_int8", phase_serve_cli, int8=True)
+    timed("parity_int8", phase_parity_int8)
     torch.cuda.empty_cache()
-    train, engine = phase_train()
-    phase_train_profile(engine)
+    train, engine = timed("train", phase_train)
+    timed("train_profile", phase_train_profile, engine)
     del engine
     torch.cuda.empty_cache()
-    phase_train_parity()
+    timed("train_parity", phase_train_parity)
     torch.cuda.empty_cache()
-    phase_train_cli()
+    timed("train_cli", phase_train_cli)
     torch.cuda.empty_cache()
-    train_moe, engine = phase_train_moe()
-    phase_train_profile(engine, phase="train_moe_profile")
+    train_moe, engine = timed("train_moe", phase_train_moe)
+    timed("train_moe_profile", phase_train_profile, engine,
+          phase="train_moe_profile")
     del engine
     torch.cuda.empty_cache()
-    phase_train_moe_parity()
+    timed("train_moe_parity", phase_train_moe_parity)
     torch.cuda.empty_cache()
-    serve_moe, module = phase_serve_moe()
-    phase_profile_paged(module, suffix="_moe")
+    serve_moe, module = timed("serve_moe", phase_serve_moe)
+    moe_windows = timed("profile_paged_moe", phase_profile_paged, module,
+                        suffix="_moe")
+    loop["moe"] = timed("serve_loop_moe", serve_loop_arm, module,
+                        "serve_loop_moe", serve_moe["paged"])
+    timed("profile_loop_moe", profile_loop, module, moe_windows[0],
+          label="decode_paged_moe_loop")
     del module
     torch.cuda.empty_cache()
-    phase_serve_cli(overrides=MOE_KNOBS)
-    phase_generate_cli(overrides=MOE_KNOBS)
+    timed("serve_cli_moe", phase_serve_cli, overrides=MOE_KNOBS)
+    timed("generate_cli_moe", phase_generate_cli, overrides=MOE_KNOBS)
     torch.cuda.empty_cache()
-    phase_parity_moe()
+    timed("parity_moe", phase_parity_moe)
     torch.cuda.empty_cache()
     evals = {"fwd": fwd_eval, "gmm": gmm_eval, "runs": {}}
-    evals["runs"]["eval"] = phase_eval()
+    evals["runs"]["eval"] = timed("eval", phase_eval)
     torch.cuda.empty_cache()
-    evals["runs"]["eval_cloze"] = phase_eval_cloze()
+    evals["runs"]["eval_cloze"] = timed("eval_cloze", phase_eval_cloze)
     torch.cuda.empty_cache()
-    evals["runs"]["eval_moe"] = phase_eval_moe()
+    evals["runs"]["eval_moe"] = timed("eval_moe", phase_eval_moe)
     torch.cuda.empty_cache()
-    phase_eval_parity()
+    timed("eval_parity", phase_eval_parity)
     torch.cuda.empty_cache()
-    phase_eval_profile()
+    timed("eval_profile", phase_eval_profile)
     torch.cuda.empty_cache()
-    evals["runs"]["predict"] = phase_predict()
+    evals["runs"]["predict"] = timed("predict", phase_predict)
     torch.cuda.empty_cache()
-    serve_lora, module = phase_serve_lora()
-    phase_profile_lora(module)
+    serve_lora, module = timed("serve_lora", phase_serve_lora)
+    lora_window = timed("profile_lora", phase_profile_lora, module)
+    mixed = (lora_source(module.model, module.seed), [1, 2, 3, 4])
+    loop["lora"] = timed(
+        "serve_loop_lora", serve_loop_arm, module, "serve_loop_lora",
+        serve_lora["arms"]["mixed"], adapters=mixed)
+    timed("profile_loop_lora", profile_loop, module, lora_window,
+          label="decode_paged_lora_loop", adapters=mixed)
     del module
     torch.cuda.empty_cache()
-    phase_serve_lora_int8()
+    timed("serve_lora_int8", phase_serve_lora_int8)
     torch.cuda.empty_cache()
-    phase_parity_lora()
+    timed("parity_lora", phase_parity_lora)
     torch.cuda.empty_cache()
-    grad = phase_grad_int8_lora()
+    grad = timed("grad_int8_lora", phase_grad_int8_lora)
     torch.cuda.empty_cache()
-    phase_finetune_lora()
+    timed("finetune_lora", phase_finetune_lora)
+    emit({"phase": "serve_loop", "loop_ticks": LOOP_TICKS,
+          "arms": sorted(loop), "seconds": sum(
+              t for name, t in PHASE_SECONDS.items()
+              if name.startswith(("serve_loop", "profile_loop")))})
+    emit({"phase_seconds": "total", "s": time.perf_counter() - start})
     print(card, flush=True)
     emit(kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window,
                       serve_paged, spec,

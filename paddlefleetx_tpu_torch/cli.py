@@ -3,7 +3,8 @@
     python -m paddlefleetx_tpu_torch.cli generate -c <yaml> [-o k=v] \
         [--text TEXT] [--device cuda|cpu]
     python -m paddlefleetx_tpu_torch.cli serve -c <yaml> [-o k=v] \
-        [--requests N] [--slots S] [--max-prompt-len L] [--device ...]
+        [--requests N] [--slots S] [--max-prompt-len L] \
+        [--device-loop-ticks T] [--device ...]
     python -m paddlefleetx_tpu_torch.cli train -c <yaml> [-o k=v] \
         [--device cuda|cpu]
     python -m paddlefleetx_tpu_torch.cli eval -c <yaml> [-o k=v] \
@@ -29,7 +30,9 @@ lockstep ``generate`` on ``--text``. ``serve`` submits ``--requests``
 prompts of seeded random tokens (lengths uniform in 5..``--max-prompt-
 len``, capped at the longest prompt the server admits beside
 ``max_dec_len``; seed ``Global.seed``) to a ``GenerationServer`` with
-``--slots`` slots, runs it to completion and prints one JSON line per
+``--slots`` slots (``--device-loop-ticks`` ticks per host round trip,
+default 1: T > 1 replays a captured CUDA graph of the tick on the card),
+runs it to completion and prints one JSON line per
 completion and a summary line; the recipe's ``Model.kv_page_size`` /
 ``kv_pool_pages`` turn the paged server on and
 ``Generation.spec_method`` / ``spec_tokens`` speculative decoding, and
@@ -79,6 +82,7 @@ def serve_main(argv: Optional[List[str]] = None) -> dict:
         p.add_argument("--requests", type=int, default=16),
         p.add_argument("--slots", type=int, default=8),
         p.add_argument("--max-prompt-len", type=int, default=700),
+        p.add_argument("--device-loop-ticks", type=int, default=1),
         p.add_argument("--device", default=None)))
     module = GPTGenerationModule(get_config(args.config, args.override),
                                  device=args.device)
@@ -92,7 +96,8 @@ def serve_main(argv: Optional[List[str]] = None) -> dict:
                for n in rng.integers(min(5, longest), longest + 1,
                                      size=args.requests)]
     server = GenerationServer(module.model, module.generation_cfg,
-                              num_slots=args.slots, seed=module.seed)
+                              num_slots=args.slots, seed=module.seed,
+                              device_loop_ticks=args.device_loop_ticks)
     completions = server.run(prompts)
     for c in completions:
         print(json.dumps({"request": c.request_id,

@@ -39,16 +39,34 @@ prefix, 1..k+1 tokens; pages wholly past a slot's accepted point go
 straight back to the pool. Greedy speculative output is token-exact
 against the plain server.
 
+Device-resident decode (``device_loop_ticks=T``, the JAX package's):
+with T > 1 every :meth:`GenerationServer.step` launches up to T ticks
+of one loop (``decode_loop`` / ``verify_loop``'s :func:`loop_tick`)
+and reads the device once: on the card a CUDA graph of one tick,
+captured at the first round trip and replayed ``n`` times
+(``core/decode_graph.py``), on the CPU the same tick eagerly. ``n`` is
+1 while the host has scheduling work (a queued request, a chunked
+prefill, or a page pool that cannot cover the T-tick window), else
+``min(T, the least remaining budget)``; on the device a tick after a
+slot finishes or spends its budget commits nothing, so the loop stops
+where the JAX package's ``lax.while_loop`` stops. The host then replays
+the per-tick buffers (tokens, interpolated TTFT, spec counts) so the
+telemetry stays tick-accurate. Any T commits the tokens of T = 1. Paged
+servers pre-map the whole T-tick write window before the launch and
+hand the pages past the committed point back after it.
+
 Telemetry: the ``serving/admitted``, ``serving/evicted``,
 ``serving/preempted``, ``serving/prefix_hits``, ``serving/cow_splits``,
 ``serving/prefill_chunks``, ``serving/decode_tokens`` (committed
 tokens, not ticks), ``serving/spec_drafted`` and
-``serving/spec_accepted`` counters, the ``serving/slot_occupancy``,
+``serving/spec_accepted`` counters, ``serving/device_ticks`` and
+``serving/loop_exit/{finished,budget,admission}`` (one a round trip
+of the loop), the ``serving/slot_occupancy``,
 ``serving/pages_in_use`` and ``serving/spec_accept_rate`` gauges and
-the ``serving/decode_tick`` timer in the process-global registry (the
-JAX package's names, ``docs/inference.md``), and a
-:meth:`GenerationServer.summary` with decode tokens/s and TTFT
-percentiles.
+the ``serving/decode_tick`` timer (one timing a round trip) in the
+process-global registry (the JAX package's names,
+``docs/inference.md``), and a :meth:`GenerationServer.summary` with
+decode tokens/s and TTFT, tick and host round-trip percentiles.
 
 Multi-tenant LoRA (``adapter_source``, a model with ``lora_rank > 0``):
 each request names an adapter (``submit(..., adapter_id=)``, 0 the base
@@ -77,8 +95,8 @@ MoE model's rows may differ between modes (they do in the JAX package),
 while slot count and admission order leave them unchanged.
 
 Not ported yet (asking for them raises ``NotImplementedError``): the
-host KV tier (``host_pool_bytes``), device-resident decode loops
-(``device_loop_ticks > 1``), deadlines, queue shedding, SIGTERM drain,
+host KV tier (``host_pool_bytes``), deadlines, queue shedding, SIGTERM
+drain,
 fault injection, KV export / import, the prefix store and the event
 trace.
 """
@@ -95,14 +113,17 @@ import numpy as np
 import torch
 
 from ..models.gpt.generation import (
-    GenerationConfig, activate_slot, copy_kv_pages, decode_step,
-    init_page_pool, init_slot_cache, init_slot_state, prefill_chunk_paged,
-    prefill_into_slots, verify_step,
+    LOOP_EXIT_BUDGET, LOOP_EXIT_FINISHED, GenerationConfig, activate_slot,
+    copy_kv_pages, decode_step, init_loop_carry, init_page_pool,
+    init_slot_cache, init_slot_state, loop_tick, prefill_chunk_paged,
+    prefill_into_slots, read_loop, release_slot, reset_loop_carry,
+    verify_step,
 )
 from ..models.gpt.model import GPTForPretraining
 from ..observability import metrics
 from ..utils.log import logger
 from .adapters import AdapterCache, insert_adapter
+from .decode_graph import TickGraph
 from .paging import (
     NULL_PAGE, PageAllocator, PagePoolExhausted, page_prefix_keys,
     pool_bytes, prompt_key,
@@ -158,8 +179,9 @@ class GenerationServer:
         prefill_chunk_pages (int): pages per chunked-prefill step.
         prefix_sharing (bool): share prompt pages through the prefix
             and whole-prompt registries.
-        device_loop_ticks (int): ticks per host round trip; only 1 is
-            ported.
+        device_loop_ticks (int): ticks per host round trip (T): T > 1
+            runs the device-resident loop, a captured CUDA graph of the
+            tick on the card.
         adapter_source: adapter id -> canonical LoRA adapter tree
             (``core/adapters.py``), a Mapping or a callable that raises
             ``KeyError`` for an unknown id; needs a model with
@@ -183,10 +205,6 @@ class GenerationServer:
         if device_loop_ticks < 1:
             raise ValueError(f"device_loop_ticks must be >= 1, got "
                              f"{device_loop_ticks}")
-        if device_loop_ticks > 1:
-            raise NotImplementedError(
-                "device_loop_ticks > 1 (device-resident decode loops) is "
-                "not ported: the port runs one tick per step")
         if gen_cfg.decode_strategy == "beam_search":
             raise ValueError("GenerationServer serves sampling/"
                              "greedy_search; beam search stays on the "
@@ -226,6 +244,11 @@ class GenerationServer:
             self._alloc = PageAllocator(cfg.kv_pool_pages, self._page)
             self._pt = np.full((num_slots, self._max_pages), NULL_PAGE,
                                np.int32)
+            # device views written in place: a captured tick reads them
+            self._pt_dev = torch.full((num_slots, self._max_pages),
+                                      NULL_PAGE, dtype=torch.int32,
+                                      device=model.word_embeddings.device)
+            self._pt_dev_dec = torch.full_like(self._pt_dev, NULL_PAGE)
             self._pt_dirty = True
             self._prefilling: deque = deque()
             self._admit_seq = 0
@@ -235,6 +258,8 @@ class GenerationServer:
         self.gen_cfg = gen_cfg
         self.num_slots = num_slots
         self.seed = int(seed)
+        self._loop_ticks = int(device_loop_ticks)
+        self._loop = None     # (LoopCarry, TickGraph), built on first use
         self.spec = gen_cfg.spec_method is not None
         self._spec_k = gen_cfg.spec_tokens
         self._draft = make_draft_source(gen_cfg.spec_method) \
@@ -279,23 +304,26 @@ class GenerationServer:
         #: by the next step()
         self._dead: List[Completion] = []
         self._ticks = 0
+        self._roundtrips = 0
         self._decode_tokens = 0
         self._tick_time = 0.0
         self._ttft_ms: List[float] = []
         self._tick_ms: List[float] = []
+        self._roundtrip_ms: List[float] = []
         if self.paged:
             logger.info(
                 "GenerationServer (paged): %d slots, %d-page pool of "
                 "%d-token pages (capacity %d = %d pages/slot max), "
-                "prefill chunk %d tokens, prefix sharing %s, spec %s on %s",
-                num_slots, cfg.kv_pool_pages, self._page,
-                cfg.cache_capacity, self._max_pages, self._chunk,
-                self._prefix_sharing, gen_cfg.spec_method, self._device)
+                "prefill chunk %d tokens, prefix sharing %s, spec %s, "
+                "%d ticks a round trip on %s", num_slots, cfg.kv_pool_pages,
+                self._page, cfg.cache_capacity, self._max_pages, self._chunk,
+                self._prefix_sharing, gen_cfg.spec_method, self._loop_ticks,
+                self._device)
         else:
             logger.info("GenerationServer: %d slots, prefill buckets %s, "
-                        "capacity %d, spec %s on %s", num_slots,
-                        list(buckets), cfg.cache_capacity,
-                        gen_cfg.spec_method, self._device)
+                        "capacity %d, spec %s, %d ticks a round trip on %s",
+                        num_slots, list(buckets), cfg.cache_capacity,
+                        gen_cfg.spec_method, self._loop_ticks, self._device)
 
     @property
     def occupancy(self) -> int:
@@ -428,13 +456,13 @@ class GenerationServer:
                                device=self._device)
 
     def _aid_arg(self) -> Optional[torch.Tensor]:
-        """The ticks' ``[slots]`` bank rows, uploaded when they changed;
-        None on a base-only server."""
+        """The ticks' ``[slots]`` bank rows, written in place when they
+        changed (a captured tick reads this buffer); None on a base-only
+        server."""
         if self._adapters is None:
             return None
         if self._aid_dirty:
-            self._aid_dev = torch.as_tensor(self._aid_np,
-                                            device=self._device)
+            self._aid_dev.copy_(torch.from_numpy(self._aid_np))
             self._aid_dirty = False
         return self._aid_dev
 
@@ -477,14 +505,15 @@ class GenerationServer:
     def _sync_pt(self) -> None:
         if not self._pt_dirty:
             return
-        self._pt_dev = torch.as_tensor(self._pt, device=self._device)
         act = np.zeros((self.num_slots, 1), bool)
         for s, r in enumerate(self._slots):
             if r is not None and r.get("active"):
                 act[s, 0] = True
-        self._pt_dev_dec = torch.as_tensor(
-            np.where(act, self._pt, NULL_PAGE).astype(np.int32),
-            device=self._device)
+        # one upload of both views, written in place
+        both = np.stack([self._pt, np.where(act, self._pt, NULL_PAGE)])
+        both = torch.from_numpy(both.astype(np.int32)).to(self._device)
+        self._pt_dev.copy_(both[0])
+        self._pt_dev_dec.copy_(both[1])
         self._pt_dirty = False
 
     def _place(self, req: dict, slot: int, num_pages: int) -> None:
@@ -667,7 +696,7 @@ class GenerationServer:
         req = self._slots[victim]
         if req.get("active") and self.spec:
             # a pending rejection residual must survive the round trip
-            req["spec_rejected"] = self._state.rejected[victim]
+            req["spec_rejected"] = int(self._state.host.rejected[victim])
         self._trim_pages(victim, 0)
         # the pin drops, the adapter stays resident: re-admission re-pins
         # it and resumes token for token
@@ -675,8 +704,7 @@ class GenerationServer:
         if victim in self._prefilling:
             self._prefilling.remove(victim)
         self._slots[victim] = None
-        self._state.active[victim] = False
-        self._state.finished[victim] = False
+        release_slot(self._state, victim)
         req["active"] = False
         req.pop("prefill_pos", None)
         self._queue.appendleft(req)
@@ -725,8 +753,7 @@ class GenerationServer:
                 self._prefilling.remove(slot)
         self._release_adapter(slot, req)
         self._slots[slot] = None
-        self._state.active[slot] = False
-        self._state.finished[slot] = False
+        release_slot(self._state, slot)
         self._counts["evicted"] += 1
         metrics.inc("serving/evicted")
         return Completion(request_id=req["id"], prompt=req["prompt"],
@@ -765,8 +792,11 @@ class GenerationServer:
     def step(self) -> List[Completion]:
         """Admit what fits, advance at most one prefill chunk (paged),
         tick every ACTIVE slot (one token plain, 1..k+1 committed tokens
-        speculative), then evict and return whatever finished (with any
-        request that failed admission)."""
+        speculative; with ``device_loop_ticks > 1`` up to that many
+        ticks in one round trip, :meth:`_step_loop`), then evict and
+        return whatever finished (with any request that failed
+        admission)."""
+        step_t0 = time.perf_counter()
         self._admit()
         reg = metrics.get_registry()
         if self.paged:
@@ -778,6 +808,21 @@ class GenerationServer:
         if not live:
             reg.set_gauge("serving/slot_occupancy", self.occupancy)
             return dead
+        if self._loop_ticks > 1:
+            done = self._step_loop(live)
+        else:
+            done = self._step_one(live)
+        reg.set_gauge("serving/slot_occupancy", self.occupancy)
+        # one round trip's whole host cost: admission, drafting, the
+        # launch, the read back and the replay of its ticks
+        self._roundtrips += 1
+        self._roundtrip_ms.append((time.perf_counter() - step_t0) * 1e3)
+        return dead + done
+
+    def _step_one(self, live: List[int]) -> List[Completion]:
+        """The ``device_loop_ticks = 1`` body of :meth:`step`: one tick,
+        one read of the device."""
+        reg = metrics.get_registry()
         t0 = time.perf_counter()
         with reg.timer("serving/decode_tick"):
             # each tick ends in a device->host copy of its tokens, so
@@ -787,7 +832,7 @@ class GenerationServer:
         self._tick_time += now - t0
         self._tick_ms.append((now - t0) * 1e3)
         self._ticks += 1
-        done: List[Completion] = []
+        metrics.inc("serving/device_ticks")
         committed = ticked = 0
         for slot in live:
             req = self._slots[slot]
@@ -809,23 +854,180 @@ class GenerationServer:
                     # are overwritten before any read)
                     self._trim_pages(slot, -(-req["cur_len"] // self._page))
             committed += m
-            if self._state.finished[slot]:
-                done.append(self._evict(slot, "eos"))
-            elif self._state.dec_count[slot] >= self.gen_cfg.max_dec_len:
-                done.append(self._evict(slot, "length"))
         self._decode_tokens += committed
         metrics.inc("serving/decode_tokens", committed)
         if self.spec:
-            drafted = self._spec_k * ticked
-            accepted = committed - ticked      # the t0s are not drafts
-            self._spec_drafted += drafted
-            self._spec_accepted += accepted
-            metrics.inc("serving/spec_drafted", drafted)
-            metrics.inc("serving/spec_accepted", accepted)
-            reg.set_gauge("serving/spec_accept_rate",
-                          self._spec_accepted / max(self._spec_drafted, 1))
-        reg.set_gauge("serving/slot_occupancy", self.occupancy)
-        return dead + done
+            self._count_spec(ticked, committed)
+        return self._evict_done(live)
+
+    def _count_spec(self, ticked: int, committed: int) -> None:
+        """One tick's drafted / accepted counts (the t0s are not
+        drafts)."""
+        drafted = self._spec_k * ticked
+        accepted = committed - ticked
+        self._spec_drafted += drafted
+        self._spec_accepted += accepted
+        metrics.inc("serving/spec_drafted", drafted)
+        metrics.inc("serving/spec_accepted", accepted)
+        metrics.get_registry().set_gauge(
+            "serving/spec_accept_rate",
+            self._spec_accepted / max(self._spec_drafted, 1))
+
+    def _evict_done(self, live: List[int]) -> List[Completion]:
+        """Evict every live slot that emitted EOS or spent its budget,
+        as the host mirror read back with the last tick says."""
+        done = []
+        for slot in live:
+            req = self._slots[slot]
+            if req is None or (self.paged and not req.get("active")):
+                continue
+            if self._state.host.finished[slot]:
+                done.append(self._evict(slot, "eos"))
+            elif self._state.host.dec_count[slot] >= self.gen_cfg.max_dec_len:
+                done.append(self._evict(slot, "length"))
+        return done
+
+    # -- device-resident decode (device_loop_ticks > 1) ----------------
+    #
+    # One step() launches up to T ticks of one loop and reads the device
+    # once; the host amortizes admission, drafting, page maintenance and
+    # telemetry over the ticks it gets back. The device stops ticking
+    # when a slot finishes or spends its budget; the host asks for one
+    # tick only while it has scheduling work, so chunked prefill and
+    # admission keep their one-unit-of-progress-per-step cadence.
+
+    def _loop_host_flag(self, live: List[int]) -> bool:
+        """Should the loop hand control back after ONE tick? While any
+        request is queued (a full-T launch would defer its admission by
+        T ticks), while a chunked prefill is unfinished (paged), or when
+        the page pool cannot cover every live slot's T-tick write window
+        without preempting (better one short loop than an avoidable
+        preemption)."""
+        if self._queue:
+            return True
+        if not self.paged:
+            return False
+        if self._prefilling:
+            return True
+        span = self._loop_ticks * ((self._spec_k + 1) if self.spec else 1)
+        cap = self.config.cache_capacity
+        need = 0
+        for slot in live:
+            req = self._slots[slot]
+            first = req["cur_len"] // self._page
+            last = -(-min(req["cur_len"] + span, cap) // self._page)
+            for j in range(first, last):
+                if j >= req["num_pages"] or self._alloc.refcount(
+                        int(self._pt[slot, j])) > 1:
+                    need += 1   # a fresh map, or a COW split's copy
+        return need > self._alloc.free_pages
+
+    def _loop_graph(self):
+        """``(LoopCarry, TickGraph)`` of this server's one tick shape,
+        built at the first round trip: the tick reads the slot state,
+        the cache, the decode page table and the adapter rows, all
+        written in place between round trips."""
+        if self._loop is None:
+            carry = init_loop_carry(self.num_slots, self._loop_ticks,
+                                    self.gen_cfg, self._device,
+                                    self._spec_k if self.spec else None)
+            pt = self._pt_dev_dec if self.paged else None
+            aid = self._aid_arg()
+
+            def tick():
+                loop_tick(self.model, self._cache, self._state, carry,
+                          self.gen_cfg, self.seed, pt, aid)
+
+            def warm():
+                # an iteration past the last is masked: it changes no
+                # slot state, and its ring column is reset after it
+                carry.tick.fill_(self._loop_ticks)
+                tick()
+                carry.tick.zero_()
+            self._loop = (carry, TickGraph(tick, warm, self._device))
+        return self._loop
+
+    def _step_loop(self, live: List[int]) -> List[Completion]:
+        """The ``device_loop_ticks > 1`` body of :meth:`step`: drafts
+        for every tick (proposed from the pre-loop history) and the
+        whole write window mapped, ``n`` ticks launched and one read of
+        the device, then a per-tick replay of the returned buffers so
+        ``serving/decode_tokens``, TTFT (interpolated over the loop's
+        wall time), ``serving/tick_ms`` and the spec counts stay
+        tick-accurate."""
+        T = self._loop_ticks
+        k = self._spec_k
+        host_flag = self._loop_host_flag(live)
+        # flag up -> one tick runs, so drafting and page pre-mapping
+        # cover one tick's window only
+        eff = 1 if host_flag else T
+        reg = metrics.get_registry()
+        t0 = time.perf_counter()
+        with reg.timer("serving/decode_tick"):
+            drafts = None
+            if self.spec:
+                drafts = np.zeros((self.num_slots, T, k), np.int64)
+                for slot in live:
+                    req = self._slots[slot]
+                    drafts[slot, :eff] = np.asarray(self._draft.propose(
+                        req["prompt"] + req["tokens"], k * eff),
+                        np.int64).reshape(eff, k)
+            if self.paged:
+                self._page_maintenance(
+                    window=eff * ((k + 1) if self.spec else 1))
+                self._sync_pt()
+            live = [s for s in live if self._slots[s] is not None and
+                    (not self.paged or self._slots[s].get("active"))]
+            # the device masks every tick past an exit, so only an EOS
+            # mid-loop leaves replays that commit nothing
+            n = 1 if host_flag else min(
+                [T] + [self.gen_cfg.max_dec_len -
+                       int(self._state.host.dec_count[s]) for s in live])
+            carry, graph = self._loop_graph()
+            self._aid_arg()
+            reset_loop_carry(carry, self.gen_cfg, host_flag, drafts)
+            graph.replay(n)
+            tokens, counts, n_ticks, exit_code = read_loop(
+                self._state, carry, self.gen_cfg)
+        loop_s = time.perf_counter() - t0
+        self._tick_time += loop_s
+        per_tick_s = loop_s / n_ticks
+        self._tick_ms.extend([per_tick_s * 1e3] * n_ticks)
+        self._ticks += n_ticks
+        metrics.inc("serving/device_ticks", n_ticks)
+        metrics.inc("serving/loop_exit/" + (
+            "finished" if exit_code == LOOP_EXIT_FINISHED else
+            "budget" if exit_code == LOOP_EXIT_BUDGET else "admission"))
+        if not self.spec:
+            tokens = tokens[:, :, None]
+            counts = np.zeros((self.num_slots, T), np.int64)
+            counts[:, :n_ticks] = 1
+        committed = 0
+        for j in range(n_ticks):
+            t_j = t0 + (j + 1) * per_tick_s
+            tick_committed = ticked = 0
+            for slot in live:
+                req = self._slots[slot]
+                ticked += 1
+                m = int(counts[slot, j])
+                req["tokens"].extend(int(t) for t in tokens[slot, j, :m])
+                if "ttft_ms" not in req:
+                    req["ttft_ms"] = (t_j - req["submit_t"]) * 1e3
+                    self._ttft_ms.append(req["ttft_ms"])
+                tick_committed += m
+            committed += tick_committed
+            if self.spec and ticked:
+                self._count_spec(ticked, tick_committed)
+        self._decode_tokens += committed
+        metrics.inc("serving/decode_tokens", committed)
+        if self.paged:
+            # past the committed tokens: the pre-mapped tail of an early
+            # exit and spec's rejected KV go back to the pool
+            for slot in live:
+                req = self._slots[slot]
+                req["cur_len"] += int(counts[slot, :n_ticks].sum())
+                self._trim_pages(slot, -(-req["cur_len"] // self._page))
+        return self._evict_done(live)
 
     def run(self, prompts: Sequence[Sequence[int]],
             adapter_ids: Optional[Sequence[int]] = None
@@ -844,9 +1046,10 @@ class GenerationServer:
         return [done[i] for i in ids]
 
     def summary(self) -> dict:
-        """Counters, decode tokens/s (committed tokens over tick time)
-        and TTFT / tick-time percentiles over the server's lifetime
-        (host clock; each tick ends in a device sync); paged servers
+        """Counters, decode tokens/s (committed tokens over tick time),
+        device ticks against host round trips, and TTFT / tick-time /
+        round-trip percentiles over the server's lifetime (host clock;
+        each round trip ends in a device sync); paged servers
         add the pool's occupancy and the allocator's sharing stats,
         speculative ones the draft and accept counts."""
         s = {"slots": self.num_slots, "occupancy": self.occupancy,
@@ -854,9 +1057,22 @@ class GenerationServer:
              "decode_tokens": self._decode_tokens,
              "decode_time_sec": self._tick_time,
              "tokens_per_sec": self._decode_tokens / self._tick_time
-             if self._tick_time > 0 else 0.0, **self._counts}
+             if self._tick_time > 0 else 0.0,
+             # the host-overhead line: device ticks against host round
+             # trips, equal at T = 1
+             "device_loop_ticks": self._loop_ticks,
+             "device_ticks": self._ticks,
+             "host_roundtrips": self._roundtrips, **self._counts}
+        if self._loop_ticks > 1:
+            # ticks launched (masked ones included) and eager warm-ups:
+            # the kernels launched (ticks_replayed + graph_warmups)
+            # times a tick
+            graph = self._loop[1] if self._loop else None
+            s["ticks_replayed"] = graph.replays if graph else 0
+            s["graph_warmups"] = graph.warmups if graph else 0
         for name, series in (("ttft", self._ttft_ms),
-                             ("tick", self._tick_ms)):
+                             ("tick", self._tick_ms),
+                             ("host_roundtrip", self._roundtrip_ms)):
             if series:
                 s[f"{name}_p50_ms"] = float(np.percentile(series, 50))
                 s[f"{name}_p99_ms"] = float(np.percentile(series, 99))

@@ -90,7 +90,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import build, philox
+from . import build, launch_counts, philox
 
 #: masked-score fill of the TPU kernels (kept for parity)
 NEG_INF = -1e30
@@ -405,8 +405,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                int(seed) if dropout_rate > 0.0 else 0)
 
 
-flash_attention.launches = 0
-flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+launch_counts.register(flash_attention,
+                       tables={"launches_by_route": ROUTES})
 
 
 def flash_attention_backward_reference(
@@ -530,8 +530,8 @@ def flash_attention_backward(
                             dropout_rate, seed)
 
 
-flash_attention_backward.launches_dkv = 0
-flash_attention_backward.launches_dq = 0
+launch_counts.register(flash_attention_backward,
+                       counts=("launches_dkv", "launches_dq"))
 
 
 #: widest query window the decode kernels take (the JAX package's
@@ -543,6 +543,8 @@ MAX_VERIFY_WINDOW = 32
 #: fp32's only route, and the bf16 / int8 comparison route that
 #: ``chip_smoke.py`` times beside ``mma``)
 DECODE_ROUTES = ("mma", "simt")
+#: a decode wrapper's launch counts: bf16 / fp32 caches, int8 caches
+DECODE_COUNTS = ("launches", "launches_int8")
 #: each route's code in the C entry points
 _DECODE_ROUTE_CODE = {"simt": 0, "mma": 1}
 #: the ``mma`` route's chunk of absolute key positions (block ``r`` of a
@@ -846,9 +848,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           quantized, p)
 
 
-flash_decode.launches = 0
-flash_decode.launches_int8 = 0
-flash_decode.launches_by_route = dict.fromkeys(DECODE_ROUTES, 0)
+launch_counts.register(flash_decode, counts=DECODE_COUNTS,
+                       tables={"launches_by_route": DECODE_ROUTES})
 
 
 def flash_decode_ragged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -921,9 +922,8 @@ def flash_decode_verify(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_decode_verify.launches = 0
-flash_decode_verify.launches_int8 = 0
-flash_decode_verify.launches_by_route = dict.fromkeys(DECODE_ROUTES, 0)
+launch_counts.register(flash_decode_verify, counts=DECODE_COUNTS,
+                       tables={"launches_by_route": DECODE_ROUTES})
 
 
 def _launch_paged(wrapper, q, k, v, offsets, page_table, dims, k_scale,
@@ -990,9 +990,8 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          quantized, p)
 
 
-flash_decode_paged.launches = 0
-flash_decode_paged.launches_int8 = 0
-flash_decode_paged.launches_by_route = dict.fromkeys(DECODE_ROUTES, 0)
+launch_counts.register(flash_decode_paged, counts=DECODE_COUNTS,
+                       tables={"launches_by_route": DECODE_ROUTES})
 
 
 def flash_decode_paged_verify(q: torch.Tensor, k: torch.Tensor,
@@ -1022,7 +1021,5 @@ def flash_decode_paged_verify(q: torch.Tensor, k: torch.Tensor,
                          quantized, p)
 
 
-flash_decode_paged_verify.launches = 0
-flash_decode_paged_verify.launches_int8 = 0
-flash_decode_paged_verify.launches_by_route = dict.fromkeys(DECODE_ROUTES,
-                                                            0)
+launch_counts.register(flash_decode_paged_verify, counts=DECODE_COUNTS,
+                       tables={"launches_by_route": DECODE_ROUTES})

@@ -42,7 +42,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from . import build
+from . import build, launch_counts
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -325,8 +325,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     return torch.ops.pfx.grouped_matmul(x, w, counts.to(torch.int32))
 
 
-grouped_matmul.launches = 0
-grouped_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+launch_counts.register(grouped_matmul,
+                       tables={"launches_by_route": ROUTES})
 
 
 def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor,
@@ -380,5 +380,5 @@ def _launch_dw(x, dy, counts, w_groups, route=None) -> torch.Tensor:
     return dw
 
 
-grouped_matmul_dw.launches = 0
-grouped_matmul_dw.launches_by_route = dict.fromkeys(ROUTES, 0)
+launch_counts.register(grouped_matmul_dw,
+                       tables={"launches_by_route": ROUTES})

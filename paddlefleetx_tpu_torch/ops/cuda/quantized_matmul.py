@@ -59,7 +59,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import build, launch_counts
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -349,7 +349,7 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
     return _QuantizedMatmul.apply(x, w, scale)
 
 
-quantized_matmul.launches = 0
-quantized_matmul.dx_launches = 0
-quantized_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
-quantized_matmul.dx_launches_by_route = dict.fromkeys(ROUTES, 0)
+launch_counts.register(quantized_matmul,
+                       counts=("launches", "dx_launches"),
+                       tables={"launches_by_route": ROUTES,
+                               "dx_launches_by_route": ROUTES})

@@ -118,6 +118,14 @@ def test_unported_strategies_raise(pair):
 
 
 def test_stream_seed_separates_streams():
-    seeds = {gen.stream_seed(0, n, c) for n in range(20) for c in range(20)}
-    assert len(seeds) == 400
-    assert all(0 <= s < 2 ** 63 for s in seeds)
+    """The device draw's uniform, keyed by (seed, stream, step), gives
+    every (stream, step) pair of a seed its own value in [0, 1), and
+    another seed other values."""
+    import torch
+    n, c = torch.meshgrid(torch.arange(20), torch.arange(20), indexing="ij")
+    u = gen.stream_uniform(0, n.reshape(-1), c.reshape(-1))
+    assert u.dtype == torch.float32 and u.shape == (400,)
+    assert len(set(u.tolist())) == 400
+    assert bool(((u >= 0) & (u < 1)).all())
+    other = gen.stream_uniform(2 ** 63 - 1, n.reshape(-1), c.reshape(-1))
+    assert not torch.equal(u, other)

@@ -151,10 +151,12 @@ def test_unported_options_and_bad_requests_raise(served):
     with pytest.raises(NotImplementedError, match="host_pool_bytes"):
         GenerationServer(model, _greedy(), page_size=128,
                          host_pool_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="device_loop_ticks"):
-        GenerationServer(model, gen.GenerationConfig(
-            max_dec_len=4, decode_strategy="greedy_search",
-            spec_method="ngram"), device_loop_ticks=4)
+    with pytest.raises(ValueError, match="device_loop_ticks"):
+        GenerationServer(model, _greedy(), device_loop_ticks=0)
+    loop = GenerationServer(model, gen.GenerationConfig(
+        max_dec_len=4, decode_strategy="greedy_search",
+        spec_method="ngram"), device_loop_ticks=4)
+    assert loop.summary()["device_loop_ticks"] == 4
     with pytest.raises(ValueError, match="beam"):
         GenerationServer(model, gen.GenerationConfig(
             max_dec_len=4, decode_strategy="beam_search", num_beams=2))

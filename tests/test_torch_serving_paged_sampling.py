@@ -10,6 +10,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 
 from _serving_paged_ref import (  # noqa: F401
     EOS, PAD, PAGED, PROMPTS, _long_prompts, ref,
@@ -123,11 +124,11 @@ def _port_verify_server(ref, paged):
     def verify(drafts, rejected=None):
         cache, state = copy.deepcopy((srv._cache, srv._state))
         if rejected is not None:
-            state.rejected = list(rejected)
+            state.rejected.copy_(torch.as_tensor(rejected))
         window, counts = gen.verify_step(srv.model, cache, state,
                                          np.asarray(drafts).tolist(), cfg,
                                          srv.seed, pt)
-        return window, counts, state.rejected
+        return window, counts, state.host.rejected.tolist()
 
     def sequential(ticks):
         cache, state = copy.deepcopy((srv._cache, srv._state))
@@ -181,15 +182,18 @@ def test_accept_uniform_and_rejected_residual():
     """The accept uniforms are in [0, 1), depend on (seed, nonce, step)
     alone and differ from the plain draw's stream; a rejected draft is
     masked out of the next draw."""
-    us = [gen.accept_uniform(0, n, s) for n in range(20) for s in range(20)]
+    n, c = torch.meshgrid(torch.arange(20), torch.arange(20), indexing="ij")
+    n, c = n.reshape(-1), c.reshape(-1)
+    us = gen.stream_uniform(0, n, c, gen.SPEC_ACCEPT_SALT).tolist()
     assert all(0.0 <= u < 1.0 for u in us)
     assert len(set(us)) == len(us)
     assert 0.3 < float(np.mean(us)) < 0.7
-    import torch
+    assert not set(us) & set(gen.stream_uniform(0, n, c).tolist())
     logits = torch.zeros(2, 5)
     logits[:, 3] = 5.0
     appeared = torch.zeros(2, 5, dtype=torch.bool)
     cfg = gen.GenerationConfig(decode_strategy="sampling", eos_token_id=4,
                                pad_token_id=4)
-    picks = gen.next_token(logits, appeared, 1, cfg, [1, 2], [3, -1])
-    assert int(picks[0]) != 3
+    picks = gen.next_token(logits, appeared, 1, cfg,
+                           torch.tensor([0.5, 0.5]), torch.tensor([3, -1]))
+    assert int(picks[0]) != 3 and int(picks[1]) == 3
