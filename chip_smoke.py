@@ -106,7 +106,21 @@ the dense paths (``eval_parity``: each batch's NLL sum within 1e-5,
 the cloze argmax with its top-2 gap), a profile of an eval batch, dense
 and MoE (``eval_profile``), and ``Engine.predict`` with ``test_iters`` 4
 (``predict``); the ``train`` phase prints the run summary
-(``Engine.print_summary``).
+(``Engine.print_summary``). Then the 1.3B recipes: kernels 1, 3 and 4
+at their attention shape (b8 h16 s1024, head_dim 128, causal, dropout
+0.1) against their plain versions, launched twice and bit-equal, timed
+beside SDPA and its backward (``kernel1_1p3b``, ``backward_1p3b``); the
+1.3B auto recipe at full width through ``cli.auto_main`` for 8 steps
+(``train_auto_1p3b``: full recompute, so kernel 1 exactly twice a layer
+and step plus once a layer and eval batch, kernels 3 and 4 once a layer
+and step; telemetry's ``events.jsonl`` held to the JAX engine's event
+names in order; one step traced by the engine's profiler window, whose
+chrome trace gives the step's device time and idle share and shows
+each hand-written kernel beside a step's launches; prefetch 2); and the
+``train`` entry point's run-time services at 4 layers (``train_cli``:
+async saves with ``keep_last_k`` 2 bit-equal to a synchronous twin
+run's, a resume from them, a SIGTERM at step 3 saved and resumed, an
+epoch-mode run evaluating once).
 Each phase prints one JSON object per line;
 the ``kernels`` line and the card's name and power limit come before
 the last line, which is ``{"ok": true, "device": {...}}``. Any failure
@@ -1755,6 +1769,43 @@ def phase_backward():
     return cases
 
 
+#: the 1.3B recipes' attention shape (b 8, h 16, s 1024, head_dim 128,
+#: causal, dropout 0.1, bf16), where ``train_auto_1p3b`` runs kernels 1,
+#: 3 and 4
+SHAPE_1P3B = {"b": 8, "h": 16, "s": 1024, "d": 128, "rate": 0.1}
+
+
+def phase_kernel1_1p3b():
+    """Kernel 1 with dropout at the 1.3B training shape (``SHAPE_1P3B``,
+    bf16): held to its plain version, launched twice and bit-equal, its
+    route and the other routes timed, SDPA with ``dropout_p`` 0.1
+    beside it, and its bound."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    from paddlefleetx_tpu_torch.ops.cuda import philox
+    c = SHAPE_1P3B
+    rec = fwd_dropout_case(fa, philox, torch, torch.bfloat16, c["b"], c["h"],
+                           c["s"], c["d"], False, 310, rate=c["rate"])
+    emit({"phase": "kernel1_1p3b", **rec})
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_backward_1p3b():
+    """Kernels 3 and 4 at the 1.3B training shape (``SHAPE_1P3B``,
+    bf16, dropout 0.1) against the plain backward, each launched alone
+    and equal to the wrapper's launch, timed beside the plain backward
+    and SDPA's backward, with their bounds."""
+    import torch
+    from paddlefleetx_tpu_torch.ops.cuda import flash_attention as fa
+    c = SHAPE_1P3B
+    rec = bwd_case(fa, torch, torch.bfloat16, c["b"], c["h"], c["s"], c["d"],
+                   False, c["rate"], 410, "1p3b")
+    emit({"phase": "backward_1p3b", **rec})
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- the serving path ---------------------------------------------------
 
 
@@ -2048,6 +2099,31 @@ def check_traced_launches(label, traced, counts) -> dict:
     return traced
 
 
+#: idle seconds the profiler window keeps before and after the profiled
+#: work: the profiler drops a device event that its clock conversion
+#: places outside the capture window, and on some hosts a window that
+#: stopped right after the synchronize lost up to a tick of its last
+#: kernels, so a traced rerun came up short of the launch counts
+PROFILE_MARGIN_S = 0.1
+
+
+def kernel_summary(events):
+    """``(ms by category, hand-written kernels' events by
+    :func:`trace_keys`, union of the spans in us)`` of device kernel
+    events."""
+    by_cat = {name: 0.0 for name, _ in KERNEL_CATEGORIES}
+    by_cat["other"] = 0.0
+    traced = {}
+    for e in events:
+        cat = next((name for name, keys in KERNEL_CATEGORIES
+                    if any(k in e["name"].lower() for k in keys)), "other")
+        by_cat[cat] += e["dur"] / 1e3
+        for key in trace_keys(e["name"]):
+            traced[key] = traced.get(key, 0) + 1
+    busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in events])
+    return by_cat, traced, busy
+
+
 def profile_window(torch, label, fn, steps, runtime=False):
     """Run ``fn`` under ``torch.profiler`` (device activity only) and
     return where the device time went: the window's host time, the union
@@ -2061,35 +2137,28 @@ def profile_window(torch, label, fn, steps, runtime=False):
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_MARGIN_S)
     events = kernel_events(prof, label, ("kernel", "cuda_runtime"))
     calls = {}
     for e in events:
         if e["cat"] == "cuda_runtime" and "Launch" in e["name"]:
             calls[e["name"]] = calls.get(e["name"], 0) + 1
     events = [e for e in events if e["cat"] == "kernel"]
-    traced = {}
-    for e in events:
-        for key in trace_keys(e["name"]):
-            traced[key] = traced.get(key, 0) + 1
-    by_cat = {name: 0.0 for name, _ in KERNEL_CATEGORIES}
-    by_cat["other"] = 0.0
+    by_cat, traced, busy = kernel_summary(events)
     by_name = {}
     for e in events:
-        cat = next((name for name, keys in KERNEL_CATEGORIES
-                    if any(k in e["name"].lower() for k in keys)), "other")
-        by_cat[cat] += e["dur"]
         ms, n = by_name.get(e["name"][:80], (0.0, 0))
         by_name[e["name"][:80]] = (ms + e["dur"] / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in events])
     out = {"window": label, "steps": steps, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3,
            "idle_share": 1.0 - busy / wall_us if events else None,
-           "kernel_ms": {k: v / 1e3 for k, v in by_cat.items()},
+           "kernel_ms": by_cat,
            "top_kernels": [{"name": k, "ms": ms, "launches": n}
                            for k, (ms, n) in top],
            "kernels_per_step": len(events) / steps,
@@ -3579,29 +3648,148 @@ def phase_train_parity(device="cuda", overrides=(), steps=2, batch=2):
             f"{PARITY_TOL['grad_leaf_rel']:.0e} < planted")
 
 
-def phase_train_cli(device="cuda", overrides=(), steps=4):
+def _step_dirs(out):
+    """The ``epoch_*_step_*`` directories under ``out``, sorted."""
+    return sorted(d for d in os.listdir(out) if re.fullmatch(
+        r"epoch_\d+_step_\d+", d))
+
+
+def _same_files(a, b, label):
+    """Hold two step directories' ``model.pt`` and ``optimizer.pt`` to
+    each other tensor for tensor, bit for bit (loaded on the CPU)."""
+    import torch
+
+    def flat(obj, key=""):
+        """``{path: leaf}`` of a nested state dict."""
+        if isinstance(obj, torch.Tensor):
+            return {key: obj}
+        if isinstance(obj, dict):
+            out = {}
+            for k, v in obj.items():
+                out.update(flat(v, f"{key}/{k}"))
+            return out
+        if isinstance(obj, (list, tuple)):
+            out = {}
+            for n, v in enumerate(obj):
+                out.update(flat(v, f"{key}/{n}"))
+            return out
+        return {key: obj}
+
+    n = 0
+    for name in ("model.pt", "optimizer.pt"):
+        x = flat(torch.load(os.path.join(a, name), map_location="cpu",
+                            weights_only=True))
+        y = flat(torch.load(os.path.join(b, name), map_location="cpu",
+                            weights_only=True))
+        if x.keys() != y.keys():
+            raise AssertionError(f"{label}: {name} keys differ")
+        for k in x:
+            same = torch.equal(x[k], y[k]) if isinstance(x[k], torch.Tensor) \
+                else x[k] == y[k]
+            if not same:
+                raise AssertionError(f"{label}: {name} {k} differs between "
+                                     f"{a} and {b}")
+            n += 1
+    return n
+
+
+def _sigterm_at(step):
+    """A step hook on ``GPTModule.training_step_end`` that sends this
+    process SIGTERM once the logged step reaches ``step``; returns the
+    hook's undo."""
+    import signal
+    from paddlefleetx_tpu_torch.models.gpt.modules import GPTModule
+    orig = GPTModule.training_step_end
+
+    def hook(self, log):
+        orig(self, log)
+        if log["batch"] == step:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    GPTModule.training_step_end = hook
+    return lambda: setattr(GPTModule, "training_step_end", orig)
+
+
+def phase_train_cli(device="cuda", overrides=(), steps=4, async_steps=6):
     """``cli.train_main`` on the recipe at a reduced depth, saving every
     2 steps and evaluating at step 2, then a second call that resumes
     from the step-2 checkpoint: both reach step ``steps`` and the
     resumed run's last loss equals the first run's within 1e-3
     relative (bit-exact is reported, not required: cuBLAS and the
     embedding backward may sum in another order between processes'
-    runs)."""
+    runs). Then the engine's run-time services through the same entry
+    point: an async run (``async_save``, ``keep_last_k`` 2, a save
+    every 2 steps to ``async_steps``) leaves only its two newest step
+    directories, each equal bit for bit to a synchronous twin run's
+    save of the same step (the async snapshot raced the next step's
+    update); a resume from its newest reaches step ``async_steps`` + 2
+    within 1e-3 of the twin's loss there; a SIGTERM sent from a step
+    hook at step 3 saves ``epoch_0_step_3`` and stops, and a resume from
+    it reaches step ``async_steps`` within 1e-3 of the async run's
+    loss; a ``run_mode: epoch`` run evaluates once, at the epoch's
+    end (its ``events.jsonl``)."""
     from paddlefleetx_tpu_torch import cli
+    from paddlefleetx_tpu_torch.observability.recorder import read_events
     tmp = tempfile.mkdtemp(prefix="pfx_cli_")
+    rec = {}
     try:
         over = ["Model.num_layers=4", f"Engine.max_steps={steps}",
                 "Engine.logging_freq=1", "Engine.eval_freq=2",
                 "Engine.eval_iters=1", "Engine.save_load.save_steps=2",
                 *TRAIN_LR, *overrides]
         data = os.path.join(tmp, "data")
-        write_train_corpus(data, over, steps)
-        first = cli.train_main(train_argv(data, os.path.join(tmp, "a"),
-                                          over, device))
+        write_train_corpus(data, over, async_steps + 2)
+
+        def run(name, *extra):
+            return cli.train_main(train_argv(
+                data, os.path.join(tmp, name), over + list(extra), device))
+
+        first = run("a")
         step2 = os.path.join(tmp, "a", "epoch_0_step_2")
-        second = cli.train_main(train_argv(
-            data, os.path.join(tmp, "b"),
-            over + [f"Engine.save_load.ckpt_dir={step2}"], device))
+        second = run("b", f"Engine.save_load.ckpt_dir={step2}")
+        shutil.rmtree(os.path.join(tmp, "a"))
+        shutil.rmtree(os.path.join(tmp, "b"))
+        t0 = time.perf_counter()
+        asy = run("async", f"Engine.max_steps={async_steps}",
+                  "Engine.save_load.async_save=True",
+                  "Engine.save_load.keep_last_k=2")
+        rec["async_run_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        twin = run("twin", f"Engine.max_steps={async_steps + 2}")
+        rec["sync_twin_run_s"] = time.perf_counter() - t0
+        kept = _step_dirs(os.path.join(tmp, "async"))
+        want = [f"epoch_0_step_{async_steps - 2}",
+                f"epoch_0_step_{async_steps}"]
+        if kept != want:
+            raise AssertionError(f"train_cli: keep_last_k 2 left {kept}, "
+                                 f"expected {want}")
+        rec["async_equal_tensors"] = sum(
+            _same_files(os.path.join(tmp, "async", d),
+                        os.path.join(tmp, "twin", d), "train_cli async")
+            for d in kept)
+        shutil.rmtree(os.path.join(tmp, "twin"))
+        resumed = run("resumed", f"Engine.max_steps={async_steps + 2}",
+                      "Engine.save_load.save_steps=1000000",
+                      f"Engine.save_load.ckpt_dir={tmp}/async")
+        shutil.rmtree(os.path.join(tmp, "async"))
+        undo = _sigterm_at(3)
+        try:
+            pre = run("preempt", f"Engine.max_steps={async_steps}",
+                      "Engine.save_load.save_steps=1000000")
+        finally:
+            undo()
+        pre_dirs = _step_dirs(os.path.join(tmp, "preempt"))
+        after = run("after", f"Engine.max_steps={async_steps}",
+                    "Engine.save_load.save_steps=1000000",
+                    f"Engine.save_load.ckpt_dir={tmp}/preempt/"
+                    f"epoch_0_step_3")
+        shutil.rmtree(os.path.join(tmp, "preempt"))
+        epoch = run("epoch", "Engine.run_mode=epoch", "Engine.eval_freq=1",
+                    "Engine.max_steps=2", "Telemetry.enable=True",
+                    "Engine.save_load.save_steps=1000000",
+                    "Engine.save_load.save_epoch=2")
+        epoch_events = [e["event"] for e in read_events(
+            os.path.join(tmp, "epoch", "events.jsonl"))]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if first.step != steps or second.step != steps or \
@@ -3614,10 +3802,212 @@ def phase_train_cli(device="cuda", overrides=(), steps=4):
     if rel > 1e-3:
         raise AssertionError(f"train_cli: resumed step-{steps} loss {b} vs "
                              f"{a} (rel {rel:.2e} > 1e-3)")
+    checks = {
+        "resume_from_async": (resumed, twin, async_steps + 2, 2),
+        "resume_from_preemption": (after, asy, async_steps,
+                                   async_steps - 3)}
+    for name, (got, ref, last, n) in checks.items():
+        x, y = got.history[-1]["loss"], ref.history[-1]["loss"]
+        r = abs(x - y) / abs(y)
+        if got.step != last or len(got.history) != n or r > 1e-3:
+            raise AssertionError(
+                f"train_cli {name}: step {got.step} (want {last}), "
+                f"{len(got.history)} steps run, loss {x} vs {y} (rel "
+                f"{r:.2e})")
+        rec[name] = {"loss": x, "reference": y, "rel_diff": r,
+                     "bit_exact": x == y}
+    if pre.step != 3 or pre_dirs != ["epoch_0_step_3"]:
+        raise AssertionError(f"train_cli: SIGTERM at step 3 stopped at "
+                             f"{pre.step} with {pre_dirs}")
+    n_eval = epoch_events.count("eval_start")
+    if epoch.step != 2 or n_eval != 1 or \
+            epoch_events.index("eval_start") < \
+            len(epoch_events) - 1 - epoch_events[::-1].index("step_window"):
+        raise AssertionError(f"train_cli: epoch mode ran {epoch.step} "
+                             f"steps, events {epoch_events}")
     emit({"phase": "train_cli", "layers": first.module.model_config.
           num_layers, "steps": steps, "resumed_from_step": 2,
           "loss_first_run": a, "loss_resumed": b, "rel_diff": rel,
-          "bit_exact": a == b, "tol_rel": 1e-3})
+          "bit_exact": a == b, "tol_rel": 1e-3,
+          "async": {"steps": async_steps, "keep_last_k": 2, "kept": kept,
+                    "twin_equal": True, **rec},
+          "preemption": {"sigterm_at": 3, "stopped_at": pre.step,
+                         "saved": pre_dirs},
+          "epoch_mode": {"steps": epoch.step, "evals": n_eval}})
+
+
+#: the 1.3B recipe the auto entry point drives
+AUTO_1P3B_CONFIG = os.path.join(ROOT, "configs", "nlp", "gpt", "auto",
+                                "pretrain_gpt_1.3B_single_card.yaml")
+
+
+def expected_events(steps, eval_freq, logging_freq=1):
+    """The JAX engine's non-span event names, in order, for a ``fit``
+    of ``steps`` steps with ``eval_freq`` (run mode step), no save and
+    no compile event (the port has none): ``fit_start``, a
+    ``step_window`` per logging window, ``eval_start`` / ``eval_end``
+    after every ``eval_freq``-th step, ``fit_end``."""
+    names = ["fit_start"]
+    for step in range(1, steps + 1):
+        if step % logging_freq == 0:
+            names.append("step_window")
+        if step % eval_freq == 0:
+            names += ["eval_start", "eval_end"]
+    return names + ["fit_end"]
+
+
+def trace_breakdown(path):
+    """Where the device time of an engine profiler window went, from its
+    chrome trace at ``path``: the window's span (first to last event of
+    any kind), the union of its kernel spans, the idle share, the kernel
+    time by category and the hand-written kernels' events by
+    :func:`trace_keys` (``traced_launches``)."""
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if "dur" in e and "ts" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return {"kernels": 0}
+    span = max(e["ts"] + e["dur"] for e in events) - \
+        min(e["ts"] for e in events)
+    by_cat, traced, busy = kernel_summary(kernels)
+    return {"window_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / span, "kernels": len(kernels),
+            "kernel_ms": by_cat, "traced_launches": traced}
+
+
+def phase_train_auto_1p3b(device="cuda", overrides=(), steps=8, eval_freq=4,
+                          config=AUTO_1P3B_CONFIG, phase="train_auto_1p3b"):
+    """The 1.3B auto recipe through ``cli.auto_main`` at full width (24
+    layers, hidden 2048, 16 heads, head_dim 128, b8 x 1024, full
+    recompute, dropout 0.1 / 0.1, bf16 on fp32 masters; ``overrides``
+    cut it on the CPU) for ``steps`` steps with telemetry and a
+    one-step profiler window on and ``prefetch_depth`` at its default.
+    ``-o`` sets only the rate (``TRAIN_LR``), the steps, the eval
+    cadence (every ``eval_freq`` steps, one batch: the recipe evaluates
+    every step for 10) and a ``save_epoch`` above the epochs run, so no
+    checkpoint is written. Asserts finite losses; kernel 1 launched
+    twice a layer and step (the forward and the backward's recompute)
+    plus once a layer and eval batch, kernels 3 and 4 once a layer and
+    step, every kernel-1 launch on its planned route, no
+    ``attention/fallback/*`` and no dense attention; the JAX engine's
+    event names in its order in ``events.jsonl``; the chrome trace in
+    ``profiler_log``."""
+    import torch
+    from paddlefleetx_tpu_torch import cli
+    from paddlefleetx_tpu_torch.observability import flops
+    from paddlefleetx_tpu_torch.observability.recorder import read_events
+    tmp = tempfile.mkdtemp(prefix="pfx_auto_")
+    try:
+        over = [f"Engine.max_steps={steps}", f"Engine.eval_freq={eval_freq}",
+                "Engine.eval_iters=1", "Engine.save_load.save_epoch=2",
+                "Telemetry.enable=True", "Profiler.enable=True",
+                "Profiler.scheduler=[2,3]",
+                f"Profiler.profiler_log={tmp}/prof", *TRAIN_LR,
+                *overrides]
+        cfg = write_train_corpus(os.path.join(tmp, "data"), over,
+                                 max(steps, 30), config=config)
+        argv = train_argv(os.path.join(tmp, "data"),
+                          os.path.join(tmp, "out"), over, device,
+                          config=config)
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        engine = cli.auto_main(argv)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        events = read_events(os.path.join(tmp, "out", "events.jsonl"))
+        trace = engine.profiler_trace
+        trace_ok = bool(trace) and os.path.isfile(trace) and \
+            os.path.getsize(trace) > 0
+        profiled = trace_breakdown(trace) if trace_ok and \
+            device != "cpu" else None
+        kept = _step_dirs(os.path.join(tmp, "out"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mcfg = engine.module.model_config
+    losses = [h["loss"] for h in engine.history]
+    if len(losses) != steps or not all(map(lambda x: x == x and
+                                           abs(x) < float("inf"), losses)):
+        raise AssertionError(f"{phase}: losses {losses}")
+    layers = mcfg.num_layers
+    evals = steps // eval_freq
+    want = {"flash_attention": 2 * steps * layers + evals * layers,
+            "flash_bwd_dkv": steps * layers, "flash_bwd_dq": steps * layers}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{phase}: {name} launched {counts[name]} "
+                                 f"times, expected {n} ({steps} steps, "
+                                 f"{evals} eval batches, {layers} layers)")
+    check_fwd_routes(counts, phase)
+    c = counts["counters"]
+    if c.get("attention/dense", 0) or any(
+            k.startswith("attention/fallback") for k in c):
+        raise AssertionError(f"{phase}: attention counters {c}")
+    names = [e["event"] for e in events if not e["event"].startswith("span")]
+    if names != expected_events(steps, eval_freq):
+        raise AssertionError(f"{phase}: events {names}, expected "
+                             f"{expected_events(steps, eval_freq)}")
+    spans = {e["name"] for e in events if e["event"].startswith("span")}
+    if not {"engine/fit", "engine/step", "engine/h2d"} <= spans:
+        raise AssertionError(f"{phase}: spans {spans}")
+    if not trace_ok or kept:
+        raise AssertionError(f"{phase}: trace {trace}, step dirs {kept}")
+    if mcfg.recompute_granularity != "full" or not mcfg.use_recompute:
+        raise AssertionError(f"{phase}: recompute "
+                             f"{mcfg.recompute_granularity}")
+    per_step = {"flash_attention": 2 * layers, "flash_bwd_dkv": layers,
+                "flash_bwd_dq": layers}
+    if profiled is not None:
+        # the engine's window traces one step, CPU and CUDA: every one of
+        # its hand-written kernels must show in the trace. Its events are
+        # reported beside a step's launches, not held equal to them: the
+        # profiler has lost one kernel event of such a step (47 of 48
+        # kernel-1 events in two runs on the H100, 48 in another), and
+        # the launches are held exactly by the counts above
+        traced = profiled["traced_launches"]
+        if any(traced.get(k, 0) == 0 for k in per_step):
+            raise AssertionError(f"{phase}: the traced step holds {traced}, "
+                                 f"a step launches {per_step}")
+    costs = [h["train_cost"] for h in engine.history[1:]]
+    seq = cfg.Data.Train.dataset.max_seq_len
+    tokens = cfg.Global.global_batch_size * seq
+    p50 = _percentile(costs, 0.5)
+    fpt = flops.model_flops_per_token(layers, mcfg.hidden_size,
+                                      mcfg.vocab_size, seq)
+    waits = engine._h2d_waits[1:] or engine._h2d_waits
+    record = {
+        "phase": phase, "model": "GPT-1.3B", "module": cfg.Model.module,
+        "dtype": mcfg.dtype, "layers": layers, "hidden": mcfg.hidden_size,
+        "heads": mcfg.num_attention_heads,
+        "head_dim": mcfg.hidden_size // mcfg.num_attention_heads,
+        "vocab": mcfg.vocab_size, "batch": cfg.Global.global_batch_size,
+        "seq": seq, "dropout": [mcfg.hidden_dropout_prob,
+                                mcfg.attention_probs_dropout_prob],
+        "recompute": mcfg.recompute_granularity, "steps": steps,
+        "eval_batches": evals, "prefetch_depth": engine.prefetch_depth,
+        "wall_s": wall, "first_step_s": engine.history[0]["train_cost"],
+        "step_p50_s": p50, "step_p90_s": _percentile(costs, 0.9),
+        "tokens_per_s": tokens / p50, "model_flops_per_token": fpt,
+        "mfu": flops.mfu(tokens / p50, fpt),
+        "mfu_peak": "bf16 dense 989 TFLOP/s",
+        "h2d_wait_p50_s": _percentile(waits, 0.5),
+        "h2d_fill_s": engine._h2d_waits[0],
+        "peak_bytes_in_use": engine.summary.get("hbm_peak_bytes"),
+        "hbm_bytes_limit": engine.summary.get("hbm_bytes_limit"),
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "launches": {k: counts[k] for k in want},
+        "launches_per_step_expected": per_step,
+        "launches_by_route": {
+            "flash_attention": counts["flash_attention_routes"]},
+        "events": len(events), "event_names_match_jax": True,
+        "profiler_trace": os.path.basename(trace), "profiled_step": profiled,
+        "counters": c}
+    emit(record)
+    return record
 
 
 # -- MoE training: the 8x345M recipe on one card -----------------------
@@ -5631,7 +6021,7 @@ def int8_rows(dec8, window8, qmm_cases, runs) -> list:
 
 def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
                  serve_paged=None, spec=None, int8=None, moe=None,
-                 lora=None, evals=None) -> dict:
+                 lora=None, evals=None, run_1p3b=None) -> dict:
     """The per-kernel record: each kernel's main-path shape (kernel 1:
     the serving case first, the training case beside it, each with its
     route and the ``mma`` route's time; kernels 3 and 4: the recipe's
@@ -5643,7 +6033,10 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
     also carry the pair's time and the bound of the one TPU function
     they replace together (5 products, ``bound_ms_both``). With
     ``evals`` (:func:`eval_rows`), kernels 1 and 8 also carry their
-    eval-shape cases and the eval paths' launches."""
+    eval-shape cases and the eval paths' launches. With ``run_1p3b``
+    (kernel 1's and the backward's 1.3B cases and ``train_auto_1p3b``),
+    kernels 1, 3 and 4 carry their head_dim-128 case (``shape_1p3b``)
+    and that path's launches."""
     k1_paths = {"serve": serve, "train": train}
     if moe is not None:
         k1_paths["train_moe"] = moe[1]
@@ -5759,7 +6152,40 @@ def kernels_line(fwd, dec, serve, fwd_drop, bwd, train, window=None,
         rows += lora_rows(lora[0], lora[1])
     if evals is not None:
         eval_rows(rows, evals)
+    if run_1p3b is not None:
+        rows_1p3b(rows, *run_1p3b)
     return {"kernels": rows}
+
+
+def rows_1p3b(rows, fwd, bwd, run) -> None:
+    """Add the 1.3B slice to the kernels line's ``rows``: kernel 1's and
+    kernels 3 and 4's head_dim-128 cases (``shape_1p3b``: ms, plain,
+    SDPA, bound, error) and their launches on ``train_auto_1p3b``."""
+    by_name = {r["name"]: r for r in rows}
+    k1 = by_name["flash_attention"]
+    k1["shape_1p3b"] = {k: fwd.get(k) for k in (
+        "dtype", "b", "h", "s", "d", "dropout", "route", "block_n",
+        "mma_ms", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "max_abs_err", "rel_l2")}
+    for name, which, grads in (("flash_bwd_dkv", "dkv", ("dk", "dv")),
+                               ("flash_bwd_dq", "dq", ("dq",))):
+        by_name[name]["shape_1p3b"] = {
+            **{k: bwd[k] for k in ("dtype", "b", "h", "s", "d", "dropout",
+                                   "plain_ms", "library_ms")},
+            "ms": bwd[f"ms_{which}"], "call_ms": bwd[f"call_ms_{which}"],
+            "bound_ms": bwd[f"bound_ms_{which}"],
+            "bound_by": bwd[f"bound_by_{which}"],
+            "max_abs_err": max(bwd["max_abs_err"][g] for g in grads),
+            "rel_l2": max(bwd["rel_l2"][g] for g in grads)}
+    for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
+        row = by_name[name]
+        n = run["launches"][name]
+        row["launches_by_path"]["train_auto_1p3b"] = n
+        row["launches"] += n
+        row["max_abs_err"] = row["max_err"] = max(
+            row["max_abs_err"], row["shape_1p3b"]["max_abs_err"])
+    for r, m in run["launches_by_route"]["flash_attention"].items():
+        k1["launches_by_route"][r] = k1["launches_by_route"].get(r, 0) + m
 
 
 _EVAL_KEYS = ("route", "ms", "call_ms", "plain_ms", "library_ms",
@@ -5837,6 +6263,8 @@ def main() -> int:
     fwd_eval, gmm_eval = timed("kernels_eval", phase_kernels_eval)
     fwd_drop = timed("kernel1_dropout", phase_kernel1_dropout)
     bwd = timed("backward", phase_backward)
+    fwd_1p3b = timed("kernel1_1p3b", phase_kernel1_1p3b)
+    bwd_1p3b = timed("backward_1p3b", phase_backward_1p3b)
     torch.cuda.empty_cache()
     serve, module = timed("serve", phase_serve)
     timed("profile", phase_profile, module)
@@ -5874,6 +6302,8 @@ def main() -> int:
     timed("train_parity", phase_train_parity)
     torch.cuda.empty_cache()
     timed("train_cli", phase_train_cli)
+    torch.cuda.empty_cache()
+    auto_1p3b = timed("train_auto_1p3b", phase_train_auto_1p3b)
     torch.cuda.empty_cache()
     train_moe, engine = timed("train_moe", phase_train_moe)
     timed("train_moe_profile", phase_train_profile, engine,
@@ -5936,7 +6366,8 @@ def main() -> int:
                       serve_paged, spec,
                       (dec8, window8, qmm_cases, int8_runs),
                       (gmm_cases, train_moe, (gmm_serve, serve_moe)),
-                      (qmm_dx_cases, grad, *gmm_lora, serve_lora), evals))
+                      (qmm_dx_cases, grad, *gmm_lora, serve_lora), evals,
+                      (fwd_1p3b, bwd_1p3b, auto_1p3b)))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

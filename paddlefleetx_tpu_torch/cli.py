@@ -7,6 +7,8 @@
         [--device-loop-ticks T] [--device ...]
     python -m paddlefleetx_tpu_torch.cli train -c <yaml> [-o k=v] \
         [--device cuda|cpu]
+    python -m paddlefleetx_tpu_torch.cli auto -c <yaml> [-o k=v] \
+        [--device cuda|cpu]
     python -m paddlefleetx_tpu_torch.cli eval -c <yaml> [-o k=v] \
         [--device cuda|cpu]
 
@@ -14,7 +16,14 @@
 config -> ``GPTModule`` -> ``Engine`` -> the Train / Eval loaders of the
 ``Data`` section -> ``Engine.fit`` (a token corpus of ``*_ids.npy`` +
 ``*_idx.npz`` files in ``Data.*.dataset.input_dir``; resume with ``-o
-Engine.save_load.ckpt_dir=<dir>``).
+Engine.save_load.ckpt_dir=<dir>``). ``Model.module`` may name
+``GPTModule`` or ``GPTModuleAuto``. ``auto`` is the counterpart of the
+JAX ``cli.auto_main``: the auto schema (``configs/nlp/gpt/auto/``) runs
+the same trainer. With ``Telemetry.enable`` the run writes
+``events.jsonl`` (``Telemetry.events_path``, default under
+``Engine.save_load.output_dir``); with ``Profiler.enable`` it writes a
+chrome trace of the ``Profiler.scheduler`` steps into
+``Profiler.profiler_log``.
 
 ``eval`` is the counterpart of the JAX package's ``cli.eval_main``:
 config -> ``GPTEvalModule`` (whatever ``Model.module`` says) -> ``Engine``
@@ -55,7 +64,7 @@ from .core.engine import Engine
 from .core.serving import GenerationServer
 from .data import build_dataloader
 from .models.gpt.modules import (
-    GPTEvalModule, GPTGenerationModule, GPTModule,
+    GPTEvalModule, GPTGenerationModule, GPTModule, GPTModuleAuto,
 )
 from .utils.config import get_config, parse_args
 from .utils.log import logger
@@ -112,6 +121,10 @@ def serve_main(argv: Optional[List[str]] = None) -> dict:
     return summary
 
 
+#: the modules ``train`` builds by ``Model.module``
+TRAIN_MODULES = {"GPTModule": GPTModule, "GPTModuleAuto": GPTModuleAuto}
+
+
 def train_main(argv: Optional[List[str]] = None) -> Engine:
     """Train the configured model: config -> ``GPTModule`` -> ``Engine``
     -> loaders -> ``Engine.fit``; returns the engine (its ``history``
@@ -120,11 +133,14 @@ def train_main(argv: Optional[List[str]] = None) -> Engine:
         "--device", default=None))
     cfg = get_config(args.config, args.override)
     name = cfg.Model.get("module", "GPTModule")
-    if name != "GPTModule":
-        raise NotImplementedError(f"module {name!r} is not ported")
-    module = GPTModule(cfg, device=args.device)
+    if name not in TRAIN_MODULES:
+        raise NotImplementedError(f"module {name!r} is not ported "
+                                  f"({', '.join(TRAIN_MODULES)} are)")
+    module = TRAIN_MODULES[name](cfg, device=args.device)
     engine = Engine(cfg, module, mode="train", device=args.device)
-    loaders = [build_dataloader(cfg.Data, mode) for mode in ("Train", "Eval")]
+    seed = cfg.Global.get("seed")
+    loaders = [build_dataloader(cfg.Data, mode, seed=seed)
+               for mode in ("Train", "Eval")]
     for loader in loaders:
         if loader is not None:
             loader.batch_sampler.batch_size = cfg.Global.global_batch_size
@@ -132,6 +148,12 @@ def train_main(argv: Optional[List[str]] = None) -> Engine:
                train_data_loader=loaders[0], valid_data_loader=loaders[1])
     logger.info("training finished")
     return engine
+
+
+def auto_main(argv: Optional[List[str]] = None) -> Engine:
+    """The auto schema's entry point: :func:`train_main`, as the JAX
+    ``cli.auto_main`` runs its ``train_main``."""
+    return train_main(argv)
 
 
 def build_eval(argv: Optional[List[str]] = None):
@@ -155,11 +177,11 @@ def eval_main(argv: Optional[List[str]] = None) -> dict:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """``python -m paddlefleetx_tpu_torch.cli {generate,serve,train,eval}
-    ...``."""
+    """``python -m paddlefleetx_tpu_torch.cli
+    {generate,serve,train,auto,eval} ...``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     commands = {"generate": generate_main, "serve": serve_main,
-                "train": train_main, "eval": eval_main}
+                "train": train_main, "auto": auto_main, "eval": eval_main}
     if not argv or argv[0] not in commands:
         print(f"usage: python -m paddlefleetx_tpu_torch.cli "
               f"{{{','.join(commands)}}} -c <yaml> [-o k=v ...]",

@@ -1,20 +1,17 @@
 """Data layer of the port: the GPT dataset, the offline evaluation
 datasets (WikiText LM, LAMBADA cloze), the sampler and the collates, the
 loader factories (counterparts of the JAX package's
-``data/__init__.py``), and the tokenizer.
-
-The loader fetches and collates in the calling thread: on one GPU the
-fetch of a memory-mapped token batch is a copy, and a loader thread
-would need a timeline track of its own. A loader thread is later work.
+``data/__init__.py``), the loader (``data/loader.py``: a producer
+thread, or a process pool with ``num_workers > 1``), and the tokenizer.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Iterator
 
 from .dataset.gpt_dataset import GPTDataset
 from .dataset.gpt_dataset_eval import Lambada_Eval_Dataset, LM_Eval_Dataset
+from .loader import DataLoader
 from .sampler.batch_sampler import GPTBatchSampler
 from .sampler.collate import (  # noqa: F401
     COLLATE_FNS, gpt_collate_fn, gpt_eval_collate_fn,
@@ -23,23 +20,6 @@ from .sampler.collate import (  # noqa: F401
 #: the datasets ``build_dataset`` takes by name; every other name raises
 DATASETS = {"GPTDataset": GPTDataset, "LM_Eval_Dataset": LM_Eval_Dataset,
             "Lambada_Eval_Dataset": Lambada_Eval_Dataset}
-
-
-class DataLoader:
-    """Batches of ``dataset`` in the order of ``batch_sampler``, collated
-    by ``collate_fn``, fetched in the calling thread."""
-
-    def __init__(self, dataset, batch_sampler, collate_fn: Callable):
-        self.dataset = dataset
-        self.batch_sampler = batch_sampler
-        self.collate_fn = collate_fn
-
-    def __iter__(self) -> Iterator:
-        for indices in self.batch_sampler:
-            yield self.collate_fn([self.dataset[i] for i in indices])
-
-    def __len__(self) -> int:
-        return len(self.batch_sampler)
 
 
 def build_dataset(config, mode: str):
@@ -58,18 +38,23 @@ def build_dataset(config, mode: str):
 
 
 def build_dataloader(config, mode: str, num_replicas: int = 1,
-                     rank: int = 0):
+                     rank: int = 0, seed=None):
     """Dataset + rank-sliced sampler + loader of ``config[mode]`` (the
-    ``Data`` section), or None when the mode has no section.
-    ``loader.num_workers`` is accepted; loading happens in the calling
-    thread whatever it says."""
+    ``Data`` section), or None when the mode has no section. The
+    ``loader`` block's ``num_workers`` and ``prefetch_depth`` reach the
+    :class:`DataLoader`, and ``seed`` (``Global.seed``) its workers'
+    seed, offset by ``1009 * rank``, as in the JAX package. The auto
+    schema's section-level ``collate_fn`` is read as the ``loader``
+    block's, and its ``sample_split`` is accepted and has no effect, as
+    on the JAX side."""
     dataset = build_dataset(config, mode)
     if dataset is None:
         return None
     sampler_cfg = copy.deepcopy(dict(config[mode].get("sampler", {})))
     name = sampler_cfg.pop("name", "GPTBatchSampler")
-    loader_cfg = dict(config[mode].get("loader", {}) or {})
-    collate = loader_cfg.get("collate_fn") or \
+    loader_cfg = copy.deepcopy(dict(config[mode].get("loader", {}) or {}))
+    loader_cfg.pop("return_list", None)
+    collate = loader_cfg.pop("collate_fn", None) or \
         config[mode].get("collate_fn") or "gpt_collate_fn"
     if name != "GPTBatchSampler" or collate not in COLLATE_FNS:
         raise NotImplementedError(
@@ -78,4 +63,6 @@ def build_dataloader(config, mode: str, num_replicas: int = 1,
     sampler_cfg.setdefault("batch_size", 1)
     sampler = GPTBatchSampler(dataset, num_replicas=num_replicas, rank=rank,
                               **sampler_cfg)
-    return DataLoader(dataset, sampler, COLLATE_FNS[collate])
+    if seed is not None:
+        loader_cfg.setdefault("seed", int(seed) + 1009 * rank)
+    return DataLoader(dataset, sampler, COLLATE_FNS[collate], **loader_cfg)

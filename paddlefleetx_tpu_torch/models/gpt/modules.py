@@ -103,6 +103,12 @@ class GPTModule(LanguageModule):
         super().training_step_end(log_dict)
 
 
+class GPTModuleAuto(GPTModule):
+    """The module the auto-parallel recipes (``configs/nlp/gpt/auto/``)
+    name: a :class:`GPTModule` and nothing more, as in the JAX package,
+    where the auto engine is the same trainer."""
+
+
 class GPTEvalModule(GPTModule):
     """Offline evaluation: WikiText perplexity (``LM_Eval_Dataset``) or
     LAMBADA cloze accuracy (``Lambada_Eval_Dataset``), as set by the

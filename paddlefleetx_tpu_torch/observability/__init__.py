@@ -1,1 +1,3 @@
-"""Telemetry of the port: the counter / gauge / timer registry."""
+"""Telemetry of the port: the counter / gauge / timer registry
+(``metrics``), the per-thread timeline, the flight recorder and its
+spans, the HBM watermark and the model-FLOPs arithmetic."""

@@ -28,10 +28,13 @@ def build_lr_scheduler(lr_config) -> Callable[[int], float]:
 def build_optimizer(config, named_params,
                     lr_scheduler: Callable[[int], float]) -> TrainOptimizer:
     """AdamW with the decay mask over ``named_params``, clipped to the
-    global norm of the ``grad_clip`` section, fp32 moments.
+    global norm of the ``grad_clip`` section. ``state_dtype`` (set to
+    ``bfloat16`` by ``mix_precision.level: o3``) stores the first moment
+    in bf16, as the JAX package's optax ``mu_dtype`` does; the second
+    moment stays fp32, and any other reduced dtype raises.
     ``tensor_fusion`` and ``multi_precision`` are accepted and have no
     effect, as in the JAX package (one fused update; fp32 master weights
-    always); a reduced ``state_dtype`` is not ported and raises."""
+    always)."""
     grad_clip = config.get("grad_clip") or {}
     if grad_clip.get("name", "ClipGradByGlobalNorm") != \
             "ClipGradByGlobalNorm":
@@ -40,13 +43,14 @@ def build_optimizer(config, named_params,
         raise NotImplementedError(
             f"optimizer {config.get('name')!r} is not ported (FusedAdamW, "
             f"AdamW are)")
-    if config.get("state_dtype") not in (None, "float32"):
+    state_dtype = config.get("state_dtype")
+    if state_dtype not in (None, "float32", "bfloat16"):
         raise NotImplementedError(
-            f"Optimizer.state_dtype={config['state_dtype']!r} is not "
-            f"ported; the port keeps fp32 moments")
+            f"Optimizer.state_dtype={state_dtype!r} is not ported (float32 "
+            f"and bfloat16 are)")
     return TrainOptimizer(
         named_params, lr_scheduler, beta1=config.get("beta1", 0.9),
         beta2=config.get("beta2", 0.999),
         epsilon=config.get("epsilon", 1e-8),
         weight_decay=config.get("weight_decay", 0.01),
-        grad_clip_norm=grad_clip.get("clip_norm"))
+        grad_clip_norm=grad_clip.get("clip_norm"), state_dtype=state_dtype)

@@ -2,7 +2,7 @@
 accumulation equal the JAX ``Engine``'s from the same weights, training
 with dropout lowers the loss, a resumed run equals an uninterrupted one
 bit for bit, a torn checkpoint is skipped, the ``[train]`` line keeps
-its grammar, and the knobs this slice does not port raise."""
+its grammar, and the knobs the port does not have raise."""
 
 import logging
 import os
@@ -207,13 +207,21 @@ def test_train_line_grammar(tmp_path, corpus):
     assert any(x.startswith("[eval]") for x in lines)
 
 
-@pytest.mark.parametrize("knob", [
-    "Profiler.enable=True", "Telemetry.enable=True",
-    "Distributed.sharding.sharding_offload=True",
-    "Engine.save_load.async_save=True", "Engine.run_mode=epoch"])
-def test_unported_knobs_raise(tmp_path, corpus, knob):
-    with pytest.raises(NotImplementedError):
-        _port(_over(corpus, str(tmp_path / "out")) + [knob])
+@pytest.mark.parametrize("knob,nranks", [
+    ("Distributed.sharding.sharding_offload=True", 1),
+    ("Distributed.ep_degree=2", 1), ("Distributed.mp_degree=2", 2),
+    ("Distributed.sharding.sharding_degree=2", 2),
+    ("Distributed.cp_degree=2", 2)])
+def test_unported_knobs_raise(tmp_path, corpus, knob, nranks):
+    """The multi-GPU degrees and optimizer offload still raise, naming
+    the knob (the profiler, telemetry, async and preemption saves,
+    retention and the epoch run mode are ported: ``test_torch_
+    {telemetry,checkpoint_async,preemption}.py``)."""
+    cfg = get_config(CONFIG, _over(corpus, str(tmp_path / "out")) + [knob],
+                     nranks=nranks)
+    name = knob.split("=")[0]
+    with pytest.raises(NotImplementedError, match=name.split(".")[-1]):
+        Engine(cfg, GPTModule(cfg, device="cpu"), device="cpu")
 
 
 def test_multi_device_and_cuda_requests_raise(tmp_path, corpus):
