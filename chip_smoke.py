@@ -2911,6 +2911,459 @@ def phase_serve_loop_paged(module, serve_paged, t1_windows, device="cuda"):
     return arms
 
 
+#: the conversational trace of the JAX bench's tiered serving record
+#: (``bench.py``'s ``PFX_BENCH_SERVING_TIERED`` block): 3 turns of 10
+#: users (32 requests // 3 turns) over a shared system prompt of one
+#: page + 2 tokens, each turn a 24-48-token message and 16 seeded reply
+#: tokens after it; 16 new tokens a request, 10 slots, one page a
+#: prefill chunk, an HBM pool of half the trace's footprint
+TIERED_TRACE = {"users": 10, "turns": 3, "max_dec_len": 16, "slots": 10,
+                "page": 128, "seed": 0, "msg": (24, 48), "reply": 16}
+#: the three tiered arms: (label, KV dtype, sampling, spec tokens, T,
+#: host_pool_bytes); arm C's 64 MiB host tier is 10 int8 pages, small
+#: enough that the host LRU evicts
+TIERED_ARMS = (("A", "bf16", True, 0, 1, 384 << 20),
+               ("B", "bf16", True, 0, LOOP_TICKS, 384 << 20),
+               ("C", "int8", False, 4, 1, 64 << 20))
+
+
+def conversation_waves(vocab, cap, trace=TIERED_TRACE):
+    """The JAX bench's conversational trace (``bench.py``): ``turns``
+    waves of ``users`` prompts, each a user's grown history, from
+    ``numpy.random.default_rng(seed)``; a history that would outgrow
+    ``cap`` positions restarts from the system prompt."""
+    import numpy as np
+    rng = np.random.default_rng(trace["seed"])
+    system = rng.integers(0, vocab - 2, trace["page"] + 2).tolist()
+    hist = [list(system) for _ in range(trace["users"])]
+    room = cap - trace["max_dec_len"] - 8
+    waves = []
+    for _ in range(trace["turns"]):
+        wave = []
+        for u in range(trace["users"]):
+            lo, hi = trace["msg"]
+            msg = rng.integers(0, vocab - 2,
+                               int(rng.integers(lo, hi + 1))).tolist()
+            if len(hist[u]) + len(msg) + 16 > room:
+                hist[u] = list(system)
+            hist[u] = hist[u] + msg
+            wave.append(list(hist[u]))
+            hist[u] = hist[u] + rng.integers(
+                0, vocab - 2, trace["reply"]).tolist()
+        waves.append(wave)
+    return waves
+
+
+def kv_twin(model, kv_cache_dtype):
+    """The serving model with another KV cache dtype, sharing its weight
+    tensors (built on the meta device, the weights assigned): no new
+    weights and no copy."""
+    import dataclasses
+    import torch
+    from paddlefleetx_tpu_torch.models.gpt.model import GPTForPretraining
+    cfg = dataclasses.replace(model.config, kv_cache_dtype=kv_cache_dtype)
+    with torch.device("meta"):
+        twin = GPTForPretraining(cfg)
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin.eval()
+
+
+def hit_rate(summary) -> float:
+    """Prefix and prompt hits over hits plus prefill chunks (the JAX
+    bench's ``prefix_hit_rate``)."""
+    hits = summary.get("prefix_hits", 0) + summary.get("prompt_hits", 0)
+    return hits / max(hits + summary.get("prefill_chunks", 0), 1)
+
+
+def serve_waves(model, gcfg, waves, device, label, seed,
+                trace=TIERED_TRACE, **kw):
+    """Serve ``waves`` one at a time on a fresh paged server (the counts
+    zeroed just before, read just after) and close it; ``(rows,
+    summary, counts, wall_s)``, having checked that every request
+    finished, the allocator is whole and every launched tick was one
+    decode-kernel launch a layer (:func:`check_paged_counts`)."""
+    import torch
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    server = GenerationServer(model, gcfg, num_slots=trace["slots"],
+                              seed=seed, page_size=trace["page"],
+                              prefill_chunk_pages=1, **kw)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = []
+        for wave in waves:
+            done = server.run(wave)
+            if not all(c.finish_reason in ("eos", "length") for c in done):
+                raise AssertionError(f"{label}: finish reasons "
+                                     f"{[c.finish_reason for c in done]}")
+            rows.append([c.tokens for c in done])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        summary = server.summary()
+        server.check_alloc()
+    finally:
+        server.close()
+    cfg = model.config
+    kernel = "flash_decode_paged_verify" if gcfg.spec_method else \
+        "flash_decode_paged"
+    if cfg.kv_cache_dtype == "int8":
+        kernel += "_int8"
+    check_paged_counts(counts, summary, cfg.num_layers, label, kernel)
+    check_decode_routes(counts, label, cfg.dtype)
+    check_int8_counts(counts, summary, cfg.num_layers, label, kernel, cfg)
+    return rows, summary, counts, wall
+
+
+#: the summary keys a serve_tiered arm prints for each of its servers
+TIER_KEYS = ("spills", "rehydrates", "host_evictions", "prefill_chunks",
+             "prefix_hits", "prompt_hits", "cow_splits", "preempted",
+             "ttft_p50_ms", "ttft_p99_ms", "rehydrate_p50_ms",
+             "rehydrate_p99_ms", "spill_d2h_p50_ms", "spill_d2h_p99_ms",
+             "host_pages_cap", "host_slab_bytes", "pool_pages",
+             "decode_ticks", "host_roundtrips", "tokens_per_sec")
+
+
+class _OpCount:
+    """Counts the ATen operators (each at least one launch on the card)
+    that a region dispatches."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Mode(TorchDispatchMode):
+            """Counts each dispatched operator, then runs it."""
+
+            def __torch_dispatch__(mode, func, types, args=(), kwargs=None):
+                self.n += 1
+                return func(*args, **(kwargs or {}))
+        self.n = 0
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def tier_launch_pin(model, kv_cache_dtype, device, pages=(1, 8)):
+    """The batched-launch pin on the card, on a pool of the serving
+    model's pages: packing N pages (``pack_kv_pages``, a spill) and
+    writing N rows back (``unpack_kv_pages``, a rehydrate) dispatch the
+    same operators for every N in ``pages``, and the round trip is
+    exact; the ms of each at each N."""
+    import dataclasses
+    import torch
+    from paddlefleetx_tpu_torch.models.gpt import generation as gen
+    cfg = dataclasses.replace(model.config, kv_cache_dtype=kv_cache_dtype,
+                              kv_page_size=TIERED_TRACE["page"],
+                              kv_pool_pages=2 * max(pages) + 1)
+    pool = gen.init_page_pool(model, cfg)
+    g = torch.Generator(device=device).manual_seed(0)
+    for layer in pool:
+        for t in layer:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                      device=device, dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, generator=g, device=device,
+                                    dtype=t.dtype))
+    out = {"kv_cache_dtype": kv_cache_dtype,
+           "row_bytes": gen.kv_row_bytes(pool), "ops": {}, "ms": {}}
+    for n in pages:
+        src = list(range(1, n + 1))
+        dst = list(range(max(pages) + 1, max(pages) + 1 + n))
+        with _OpCount() as pack_ops:
+            rows = gen.pack_kv_pages(pool, src)
+        host = torch.empty(rows.shape, dtype=torch.uint8,
+                           pin_memory=device != "cpu")
+        host.copy_(rows)
+        back = host.to(device)
+        with _OpCount() as unpack_ops:
+            gen.unpack_kv_pages(pool, back, dst)
+        for layer in pool:
+            for t in layer:
+                if not torch.equal(t[src], t[dst]):
+                    raise AssertionError(f"tier_launch_pin: {n} pages "
+                                         f"did not round-trip exactly")
+        out["ops"][n] = {"pack": pack_ops.n, "unpack": unpack_ops.n}
+        if device != "cpu":
+            out["ms"][n] = {
+                "pack": time_ms(lambda i: gen.pack_kv_pages(pool, src),
+                                1)[0],
+                "unpack": time_ms(lambda i: gen.unpack_kv_pages(
+                    pool, back, dst), 1)[0]}
+    if len({tuple(v.values()) for v in out["ops"].values()}) != 1:
+        raise AssertionError(f"tier_launch_pin: operator counts grow with "
+                             f"the page count: {out['ops']}")
+    del pool
+    return out
+
+
+def phase_serve_tiered(module, device="cuda", trace=TIERED_TRACE,
+                       arms=TIERED_ARMS):
+    """The host KV tier on ``serve_paged``'s 345M module (no new model:
+    arm C's int8 cache serves a twin sharing its weights), on the JAX
+    bench's conversational trace (:func:`conversation_waves`) with an
+    HBM pool of half the trace's footprint: arms A (bf16, sampling top-k
+    50 / top-p 0.75, T = 1, 384 MiB host tier), B (the same at
+    ``LOOP_TICKS``) and C (int8 KV, greedy, n-gram spec of 4 tokens, 64
+    MiB: the host LRU evicts). Each arm's rows equal its untiered twin's
+    on an unlimited pool (A and B share one), with spills, rehydrates,
+    fewer prefill chunks than the twin and the decode kernels' launch
+    counts exact; arm C evicts host pages. Then the batched-launch pin
+    (:func:`tier_launch_pin`) at bf16 and int8. Prints one line an
+    arm."""
+    import dataclasses
+    cfg = module.model_config
+    page = trace["page"]
+    waves = conversation_waves(cfg.vocab_size, cfg.max_position_embeddings,
+                               trace)
+    footprint = sum(-(-(len(w[-1]) + trace["max_dec_len"]) // page)
+                    for w in zip(*waves))
+    cap_pages = -(-cfg.max_position_embeddings // page)
+    tiered_pool = max(cap_pages + 1, footprint // 2)
+    twin_pool = footprint + trace["slots"] * cap_pages + 1
+    sampling = dataclasses.replace(
+        module.generation_cfg, max_dec_len=trace["max_dec_len"],
+        decode_strategy="sampling", top_k=50, top_p=0.75)
+    greedy = dataclasses.replace(
+        module.generation_cfg, max_dec_len=trace["max_dec_len"],
+        decode_strategy="greedy_search", spec_method="ngram",
+        spec_tokens=4)
+    twins = {}
+    records = {}
+    for label, kv, sample, spec, ticks, host in arms:
+        model = module.model if kv == "bf16" else kv_twin(module.model, kv)
+        gcfg = sampling if sample else greedy
+        name = f"serve_tiered_{label}"
+        if (kv, sample) not in twins:
+            twins[(kv, sample)] = serve_waves(
+                model, gcfg, waves, device, name + "_twin", module.seed,
+                trace, pool_pages=twin_pool)
+        want, us, _, uwall = twins[(kv, sample)]
+        got, ts, counts, wall = serve_waves(
+            model, gcfg, waves, device, name, module.seed, trace,
+            pool_pages=tiered_pool, host_pool_bytes=host,
+            device_loop_ticks=ticks)
+        if got != want:
+            bad = [(i, j) for i, (a, b) in enumerate(zip(got, want))
+                   for j, (x, y) in enumerate(zip(a, b)) if x != y]
+            raise AssertionError(f"{name}: rows differ from the untiered "
+                                 f"twin at (wave, request) {bad}")
+        c = counts["counters"]
+        if not (ts["spills"] > 0 and ts["rehydrates"] > 0 and
+                ts["prefill_chunks"] < us["prefill_chunks"]):
+            raise AssertionError(f"{name}: spills {ts['spills']}, "
+                                 f"rehydrates {ts['rehydrates']}, chunks "
+                                 f"{ts['prefill_chunks']} against the "
+                                 f"twin's {us['prefill_chunks']}")
+        if c.get("serving/spill", 0) != ts["spills"] or \
+                c.get("serving/rehydrate", 0) != ts["rehydrates"] or \
+                c.get("serving/spill_failed", 0):
+            raise AssertionError(f"{name}: counters {c} against the "
+                                 f"summary {ts}")
+        if label == "C" and not ts["host_evictions"]:
+            raise AssertionError(f"{name}: the {host >> 20} MiB host tier "
+                                 f"evicted nothing")
+        rec = {"phase": "serve_tiered", "arm": label, "kv_cache_dtype": kv,
+               "strategy": gcfg.decode_strategy, "spec_tokens": spec,
+               "loop_ticks": ticks, "host_pool_bytes": host,
+               "trace": dict(trace, requests=sum(map(len, waves)),
+                             footprint_pages=footprint),
+               "hbm_pool_pages": tiered_pool, "twin_pool_pages": twin_pool,
+               "rows_equal_twin": True, "wall_s": wall, "twin_wall_s": uwall,
+               "prefix_hit_rate": hit_rate(ts),
+               "prefix_hit_rate_twin": hit_rate(us),
+               "tiered": {k: ts[k] for k in TIER_KEYS if k in ts},
+               "twin": {k: us[k] for k in TIER_KEYS if k in us},
+               "launches": {k: counts[k] for k in DECODE_COUNTS
+                            if counts[k]}}
+        if ticks > 1:
+            rec["ticks_replayed"] = ts["ticks_replayed"]
+            rec["graph_warmups"] = ts["graph_warmups"]
+        emit(rec)
+        records[label] = rec
+    records["launch_pin"] = [tier_launch_pin(module.model, kv, device)
+                             for kv in ("bf16", "int8")]
+    emit({"phase": "serve_tiered", "launch_pin": records["launch_pin"]})
+    return records
+
+
+def phase_serve_robust(module, device="cuda", requests=6, slots=4,
+                       max_dec_len=16, hi=300):
+    """Serving robustness on ``serve_paged``'s module, on a short greedy
+    paged trace: a drain after 3 steps and a resume of every partial on
+    a fresh server (``resume_tokens``, ``trace_id``) whose stitched rows
+    equal the uninterrupted run's, one trace per request across the
+    restart; a queued request past its deadline and a shed submit; a
+    ``/healthz`` scrape that reads 200, then 503 once draining; a
+    prefix-store export, save, load and import into a fresh tiered
+    server whose first wave rehydrates instead of re-prefilling, rows
+    equal."""
+    import dataclasses
+    import urllib.error
+    import urllib.request
+    from paddlefleetx_tpu_torch.core.checkpoint import (
+        load_prefix_store, save_prefix_store,
+    )
+    from paddlefleetx_tpu_torch.core.serving import (
+        GenerationServer, RequestShed,
+    )
+    from paddlefleetx_tpu_torch.observability import server as obs_server
+    from paddlefleetx_tpu_torch.observability.recorder import read_events
+    cfg = module.model_config
+    gcfg = dataclasses.replace(module.generation_cfg,
+                               max_dec_len=max_dec_len,
+                               decode_strategy="greedy_search")
+    prompts = seeded_prompts(requests, 16, hi, cfg.vocab_size - 2, 5)
+    kw = dict(num_slots=slots, seed=module.seed, page_size=128,
+              prefill_chunk_pages=1)
+    rec = {"phase": "serve_robust", "requests": requests, "slots": slots,
+           "max_dec_len": max_dec_len}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    events = os.path.join(OUT_DIR, "serve_robust_events.jsonl")
+    if os.path.exists(events):
+        os.remove(events)
+
+    def drive(srv, done):
+        while srv.pending or srv.occupancy:
+            for c in srv.step():
+                done[c.request_id] = c
+        return done
+
+    srv = GenerationServer(module.model, gcfg, **kw)
+    try:
+        want = [c.tokens for c in srv.run(prompts)]
+    finally:
+        srv.close()
+    # drain -> resume
+    t0 = time.perf_counter()
+    srv = GenerationServer(module.model, gcfg, events_path=events, **kw)
+    try:
+        ids = [srv.submit(p) for p in prompts]
+        done = {}
+        for _ in range(3):
+            for c in srv.step():
+                done[c.request_id] = c
+        for c in srv.drain(max_ticks=0):
+            done[c.request_id] = c
+    finally:
+        srv.close()
+    partials = [c for c in done.values() if c.finish_reason == "preempted"]
+    srv = GenerationServer(module.model, gcfg, events_path=events, **kw)
+    try:
+        remap = {srv.submit(c.prompt, resume_tokens=c.tokens or None,
+                            trace_id=c.trace_id): c for c in partials}
+        done2 = drive(srv, {})
+    finally:
+        srv.close()
+    final = {rid: done[rid].tokens for rid in ids}
+    for nid, c in remap.items():
+        final[c.request_id] = done2[nid].tokens
+    if [final[i] for i in ids] != want or \
+            not any(c.tokens for c in partials):
+        raise AssertionError("serve_robust: drained and resumed rows "
+                             "differ from the uninterrupted run")
+    roots = [e for e in read_events(events) if e["event"] == "span_begin"
+             and e["name"] == "serving/request"]
+    for c in partials:
+        if sum(r["trace"] == c.trace_id for r in roots) != 2:
+            raise AssertionError(f"serve_robust: trace {c.trace_id} not "
+                                 f"continued across the resume")
+    rec["drain_resume"] = {"partials": len(partials),
+                           "mid_decode": sum(bool(c.tokens)
+                                             for c in partials),
+                           "rows_equal": True,
+                           "s": time.perf_counter() - t0}
+    # deadline and shed
+    srv = GenerationServer(module.model, gcfg, max_queue_depth=2,
+                           **dict(kw, num_slots=1))
+    try:
+        a = srv.submit(prompts[0])
+        b = srv.submit(prompts[1], deadline_s=0.0)
+        try:
+            srv.submit(prompts[2])
+            raise AssertionError("serve_robust: a third queued submit was "
+                                 "not shed at max_queue_depth 2")
+        except RequestShed:
+            pass
+        done = drive(srv, {})
+        summ = srv.summary()
+    finally:
+        srv.close()
+    if done[b].finish_reason != "deadline_exceeded" or done[b].tokens or \
+            done[a].tokens != want[0] or summ["shed"] != 1 or \
+            summ["deadline_exceeded"] != 1:
+        raise AssertionError(f"serve_robust: deadline / shed {done} {summ}")
+    rec["deadline_shed"] = {"deadline_exceeded": 1, "shed": 1}
+    # /healthz 200 -> 503 on drain
+    obs_server.stop()
+    srv = GenerationServer(module.model, gcfg, metrics_port=0, **kw)
+    def healthz():
+        try:
+            with urllib.request.urlopen(
+                    obs_server.get_server().url("/healthz"),
+                    timeout=10) as resp:
+                return resp.status
+        except urllib.error.HTTPError as err:
+            return err.code
+
+    try:
+        srv.run(prompts[:2])
+        codes = [healthz()]
+        srv.drain()
+        codes.append(healthz())
+        with urllib.request.urlopen(obs_server.get_server().url(
+                "/metrics"), timeout=10) as resp:
+            metrics_body = resp.read()
+    finally:
+        srv.close()
+        obs_server.stop()
+    if codes != [200, 503] or b"pfx_serving_ttft_ms_bucket" not in \
+            metrics_body:
+        raise AssertionError(f"serve_robust: /healthz answered {codes}")
+    rec["healthz"] = codes
+    # the prefix store across a restart
+    tkw = dict(kw, pool_pages=9, host_pool_bytes=384 << 20)
+    wave = prompts[:4]
+    srv = GenerationServer(module.model, gcfg, **tkw)
+    try:
+        cold = [c.tokens for c in srv.run(wave)]
+        cold_summary = srv.summary()
+        store = srv.export_prefix_store()
+    finally:
+        srv.close()
+    path = os.path.join(OUT_DIR, "prefix_store")
+    shutil.rmtree(path, ignore_errors=True)
+    save_prefix_store(path, store)
+    loaded = load_prefix_store(path)
+    srv = GenerationServer(module.model, gcfg, **tkw)
+    try:
+        adopted = srv.import_prefix_store(loaded)
+        warm = [c.tokens for c in srv.run(wave)]
+        warm_summary = srv.summary()
+    finally:
+        srv.close()
+    shutil.rmtree(path, ignore_errors=True)
+    if warm != cold or not adopted or not warm_summary["rehydrates"] or \
+            warm_summary["prefill_chunks"] >= cold_summary["prefill_chunks"]:
+        raise AssertionError(f"serve_robust: the imported store ({adopted} "
+                             f"pages) gave {warm_summary}")
+    rec["prefix_store"] = {
+        "pages": len(store["pages"]), "adopted": adopted,
+        "rows_equal": True,
+        "cold_prefill_chunks": cold_summary["prefill_chunks"],
+        "warm_prefill_chunks": warm_summary["prefill_chunks"],
+        "warm_rehydrates": warm_summary["rehydrates"],
+        "rehydrate_p50_ms": warm_summary.get("rehydrate_p50_ms")}
+    emit(rec)
+    return rec
+
+
 def profile_loop(module, t1, device="cuda", label="decode_paged_loop",
                  spec=False, adapters=None):
     """Where a round trip of ``LOOP_TICKS`` ticks goes, once the queue is
@@ -6280,6 +6733,8 @@ def main() -> int:
     paged_windows = timed("profile_paged", phase_profile_paged, module)
     loop.update(timed("serve_loop_paged", phase_serve_loop_paged, module,
                       serve_paged, paged_windows))
+    timed("serve_tiered", phase_serve_tiered, module)
+    timed("serve_robust", phase_serve_robust, module)
     del module
     timed("serve_cli_paged_spec", phase_serve_cli, paged_spec=True)
     torch.cuda.empty_cache()

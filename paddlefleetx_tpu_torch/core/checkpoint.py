@@ -28,6 +28,13 @@ the newest ``keep_last_k`` verified step directories; the manifest
 gates it, so it never deletes an uncommitted directory (an async save
 in flight).
 
+A serving prefix store (:func:`save_prefix_store` /
+:func:`load_prefix_store`: a tiered server's host-resident KV pages and
+the registry entries that reach them, ``GenerationServer.
+export_prefix_store``) is a directory of ``host_pages.npz`` and
+``prefix_store.json``, its manifest committed last; a torn or altered
+store is refused on load.
+
 LoRA adapters (:func:`save_adapter` / :func:`load_adapter`) are stored
 in the JAX package's format, so either package reads the other's:
 ``adapter.npz`` holds the canonical tree's leaves (``core/adapters.py``)
@@ -137,6 +144,109 @@ def _write(path: str, obj, as_json: bool = False) -> None:
             torch.save(obj, f)
         f.flush()
         os.fsync(f.fileno())
+
+
+def _file_sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def save_prefix_store(path: str, store: Dict[str, Any]) -> str:
+    """Persist a serving prefix store
+    (``GenerationServer.export_prefix_store``) as a committed-last
+    directory: the page rows as one ``host_pages.npz``, the registry
+    structure, the geometry, the model fingerprint and the npz's
+    SHA-256 as ``prefix_store.json``, then the :func:`write_manifest`
+    rename commit. A torn write leaves no manifest, and
+    :func:`load_prefix_store` refuses it. Returns the manifest path."""
+    os.makedirs(path, exist_ok=True)
+    # decommit a stale manifest FIRST, so a crash mid-rewrite cannot
+    # leave a marker that attests to half-new bytes
+    stale = os.path.join(path, MANIFEST_NAME)
+    if os.path.exists(stale):
+        os.remove(stale)
+    arrays: Dict[str, Any] = {}
+    pages_index: Dict[str, int] = {}
+    for hpid, leaves in store.get("pages", {}).items():
+        pages_index[str(int(hpid))] = len(leaves)
+        for i, leaf in enumerate(leaves):
+            arrays[f"p{int(hpid)}_{i}"] = np.asarray(leaf)
+    prompts = []
+    n_payload = 0
+    for key, (pages, payload) in store.get("prompts", {}).items():
+        idx = None
+        if payload is not None:
+            idx = n_payload
+            arrays[f"payload{idx}"] = np.asarray(payload)
+            n_payload += 1
+        prompts.append([key, [int(p) for p in pages], idx])
+    npz = os.path.join(path, "host_pages.npz")
+    with open(npz, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    meta = {"kind": "prefix_store",
+            "page_size": int(store["page_size"]),
+            "kv_cache_dtype": store["kv_cache_dtype"],
+            "model_fingerprint": store.get("model_fingerprint"),
+            "pages": pages_index,
+            "prefixes": [[k, int(p)]
+                         for k, p in store.get("prefixes", {}).items()],
+            "prompts": prompts,
+            # the manifest hashes small files only: the page rows carry
+            # their own digest, so a flipped byte is refused at any size
+            "host_pages_sha256": _file_sha256(npz)}
+    _write(os.path.join(path, "prefix_store.json"), meta, as_json=True)
+    return write_manifest(path, {"kind": "prefix_store",
+                                 "pages": len(pages_index)})
+
+
+def load_prefix_store(path: str, recorder=None
+                      ) -> Optional[Dict[str, Any]]:
+    """Load a :func:`save_prefix_store` directory back into the dict
+    ``GenerationServer.import_prefix_store`` takes. Refuses (None: the
+    caller starts cold, with a ``prefix_store_rejected`` event) a
+    directory that was never committed, fails verification or whose
+    page rows do not match their digest: a warm start from torn KV
+    bytes would serve wrong attention."""
+    reason = verify_checkpoint(path)
+    meta = None
+    if reason is None:
+        try:
+            with open(os.path.join(path, "prefix_store.json")) as f:
+                meta = json.load(f)
+            if _file_sha256(os.path.join(path, "host_pages.npz")) != \
+                    meta.get("host_pages_sha256"):
+                reason = "content hash mismatch on host_pages.npz"
+        except (OSError, ValueError) as err:
+            reason = f"unreadable prefix store: {err}"
+    if reason is not None:
+        logger.warning("prefix store at %s refused: %s", path, reason)
+        if recorder is not None:
+            recorder.emit("prefix_store_rejected", path=path, reason=reason)
+        return None
+    try:
+        # every array materializes inside the context, so the file
+        # closes here rather than at garbage collection
+        with np.load(os.path.join(path, "host_pages.npz")) as npz:
+            pages = {int(h): [npz[f"p{int(h)}_{i}"] for i in range(n)]
+                     for h, n in meta.get("pages", {}).items()}
+            prompts = {k: ([int(p) for p in pids],
+                           npz[f"payload{idx}"] if idx is not None
+                           else None)
+                       for k, pids, idx in meta.get("prompts", [])}
+    except (OSError, ValueError, KeyError) as err:
+        logger.warning("prefix store at %s unreadable: %s", path, err)
+        return None
+    return {"page_size": meta["page_size"],
+            "kv_cache_dtype": meta["kv_cache_dtype"],
+            "model_fingerprint": meta.get("model_fingerprint"),
+            "pages": pages,
+            "prefixes": {k: int(p) for k, p in meta.get("prefixes", [])},
+            "prompts": prompts}
 
 
 def save_adapter(path: str, tree: Dict[str, Any],

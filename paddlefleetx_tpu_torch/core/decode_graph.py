@@ -81,6 +81,12 @@ class TickGraph:
         #: eager warm-up ticks run before a capture
         self.warmups = 0
 
+    @property
+    def captured(self) -> bool:
+        """Whether the next :meth:`replay` replays a captured graph (on
+        the CPU, always: nothing is captured there)."""
+        return self._graph is not None or not self._cuda
+
     def replay(self, n: int) -> None:
         """Launch ``n`` ticks back to back, with no read of the device
         between them."""

@@ -48,7 +48,14 @@ so the banks see zero gradients there and only weight decay moves
 ``lora_a``: the port reproduces the JAX package here. The engine knobs
 the port does not have (data, model, pipeline, sharding or expert
 parallelism, optimizer offload) raise ``NotImplementedError``; none is
-ignored. The summary has no lines for what the port does not have: the
+ignored. ``fault_injector`` (``core/resilience.py``) fires at the JAX
+engine's sites: ``step`` after each step's save cadence, ``save`` after
+each save (``corrupt_ckpt`` garbles the checkpoint just written), and a
+``watchdog`` (``StepWatchdog``, started here) is armed around every
+train step; the JAX engine builds both from ``PFX_*`` variables, the
+port takes them as arguments (``cli.py train --faults``,
+``--watchdog-min-s``). The summary has no lines for what the port does
+not have: the
 compile bucket (eager PyTorch compiles nothing; the JAX ``compile``
 event and ``engine/compile`` span have no counterpart) and the
 model-parallel probe.
@@ -78,6 +85,7 @@ from ..optims.optimizer import clip_by_global_norm_
 from ..utils.device import resolve_device
 from ..utils.log import logger
 from . import checkpoint as ckpt
+from .resilience import FaultInjector, StepWatchdog
 
 
 #: the JAX engine's mesh axes, each of size 1 on one card (the
@@ -135,7 +143,9 @@ class Engine:
     """
 
     def __init__(self, configs, module, mode: str = "train",
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 fault_injector: Optional[FaultInjector] = None,
+                 watchdog: Optional[StepWatchdog] = None):
         asked = _unported_knobs(configs)
         if asked:
             raise NotImplementedError(
@@ -205,6 +215,17 @@ class Engine:
                 os.path.join(self.output_dir, "events.jsonl"))
         self._tracer = Tracer(self.recorder)
         self._fit_span = NULL_SPAN
+        # resilience: the injected faults fire at the step and save
+        # sites, the watchdog times every train step; both None by
+        # default (no thread, no cost)
+        self._faults = fault_injector
+        self._watchdog = watchdog
+        for hook in (fault_injector, watchdog):
+            if hook is not None and hook._recorder is None:
+                hook._recorder = self.recorder
+        if watchdog is not None:
+            watchdog.start()
+        self._save_count = 0
         #: engine-local gauges (``hbm/peak_bytes_in_use``)
         self.metrics = obs_metrics.MetricsRegistry(enabled=True)
         self._hbm_watermark: Optional[Dict[str, int]] = None
@@ -440,6 +461,8 @@ class Engine:
         finally:
             if installed:   # prev_handler may legitimately be None
                 signal.signal(signal.SIGTERM, prev_handler)
+            if self._watchdog is not None:
+                self._watchdog.disarm()
             if self._prof is not None:
                 self._stop_profiler()
             self._fit_span.end()   # idempotent: no-op on a clean exit
@@ -507,6 +530,9 @@ class Engine:
             if self.step >= self.max_steps:
                 return
             self._profiler_step(self.step)
+            if self._watchdog is not None:
+                # armed across the whole host-side body of the step
+                self._watchdog.arm(tag=f"step {self.step + 1}")
             step_span = self._fit_span.start_span("engine/step",
                                                   step=self.step + 1)
             tl_t0 = tl.begin()
@@ -550,6 +576,12 @@ class Engine:
                 self.save(epoch)
                 step_start = time.time()
                 window_clean = False
+            if self._faults is not None:
+                # after the save cadence: kill@step=N dies with every
+                # save <= N durable, the state a resume starts from
+                self._faults.fire("step", self.step)
+            if self._watchdog is not None:
+                self._watchdog.disarm()
             if self._preempt_signum is not None:
                 return   # _fit_epochs saves, then stops
 
@@ -819,6 +851,12 @@ class Engine:
             self.recorder.emit("save", step=self.step, epoch=epoch,
                                save_s=round(save_s, 4),
                                async_save=self.async_save)
+        self._save_count += 1
+        if self._faults is not None:
+            # kill@save=N dies mid-async-save (the manifest uncommitted:
+            # a resume skips the torn dir); corrupt_ckpt@save=N garbles
+            # the committed checkpoint (a restore falls back)
+            self._faults.fire("save", self._save_count, path=path)
         if self.keep_last_k:
             ckpt.gc_checkpoints(self.output_dir, self.keep_last_k,
                                 recorder=self.recorder)

@@ -434,7 +434,8 @@ def prefill_into_slots(model: GPTForPretraining, cache: KVCache,
                        state: SlotState, slot_ids: Sequence[int],
                        input_ids: torch.Tensor, true_lengths: Sequence[int],
                        nonces: Sequence[int],
-                       adapter_ids: Optional[torch.Tensor] = None) -> None:
+                       adapter_ids: Optional[torch.Tensor] = None,
+                       dec_counts: Optional[Sequence[int]] = None) -> None:
     """Admit requests into free slots, in place: prefill the RIGHT-padded
     ``input_ids [n, bucket]`` (prompts start at cache position 0; the
     pad tail past ``true_lengths`` is causally masked during prefill and
@@ -442,7 +443,10 @@ def prefill_into_slots(model: GPTForPretraining, cache: KVCache,
     and set those slots' state, on the device and in the mirror, from
     each row's last real token. ``adapter_ids [n]`` (int32 LoRA bank
     rows) tint each row's KV and logits with its adapter; None serves
-    the base model."""
+    the base model. ``dec_counts [n]`` (default zeros) are the tokens
+    each row already generated: a resumed request's prefill covers
+    prompt + those tokens, and its sampling stream and budget go on
+    from there."""
     dev = model.word_embeddings.device
     n, bucket = input_ids.shape
     rows = torch.as_tensor(list(slot_ids), device=dev)
@@ -461,12 +465,15 @@ def prefill_into_slots(model: GPTForPretraining, cache: KVCache,
     state.lengths[rows] = lengths.to(torch.int32)
     state.nonce[rows] = torch.as_tensor(list(nonces), dtype=torch.int64,
                                         device=dev)
-    state.dec_count[rows] = 0
+    counts = [int(c) for c in dec_counts] if dec_counts is not None \
+        else [0] * n
+    state.dec_count[rows] = torch.as_tensor(counts, dtype=torch.int64,
+                                            device=dev)
     state.finished[rows] = False
     state.active[rows] = True
     state.rejected[rows] = -1
-    for slot in slot_ids:
-        _mirror_admit(state, slot, 0, -1)
+    for slot, count in zip(slot_ids, counts):
+        _mirror_admit(state, slot, count, -1)
 
 
 @torch.inference_mode()
@@ -933,6 +940,84 @@ def copy_kv_pages(pool: KVCache, src: Sequence[int],
     for layer in pool:
         for t in layer:
             t[d] = t[s]
+
+
+#: alignment of a page row's length in bytes: every pool tensor's
+#: segment of a row views back into its own dtype in place
+_ROW_ALIGN = 16
+
+
+def _row_layout(pool: KVCache) -> List[torch.Tensor]:
+    """The pool tensors in page-row order: every layer's K and V pools
+    and, under the int8 cache, their fp32 scale pools, widest element
+    first, so each segment of a row starts at a multiple of its own
+    element size."""
+    flat = [t for layer in pool for t in layer]
+    return sorted(flat, key=lambda t: -t.element_size())
+
+
+def kv_row_bytes(pool: KVCache) -> int:
+    """Bytes of one page's row: its slice of every pool tensor
+    (:func:`pack_kv_pages`), padded to ``_ROW_ALIGN``."""
+    used = sum(t[0].numel() * t.element_size() for t in _row_layout(pool))
+    return -(-used // _ROW_ALIGN) * _ROW_ALIGN
+
+
+@torch.inference_mode()
+def pack_kv_pages(pool: KVCache, pids: Sequence[int]) -> torch.Tensor:
+    """Pack physical pages ``pids`` of every pool tensor (K, V and the
+    int8 cache's scales, every layer) into one contiguous ``uint8 [n,
+    kv_row_bytes(pool)]`` buffer on the pool's device, one row a page:
+    the gather half of a spill (the JAX package's
+    ``gather_kv_pages``, named apart from
+    ``ops/cuda/flash_attention.py::gather_kv_pages``, which reads a
+    page *table* into a contiguous cache). One indexed read per pool
+    tensor and one concatenation, whatever ``n``: the row buffer then
+    leaves the card in one copy."""
+    dev = pool[0][0].device
+    idx = torch.as_tensor(list(pids), dtype=torch.long, device=dev)
+    n = idx.numel()
+    parts = [t.index_select(0, idx).reshape(n, -1).view(torch.uint8)
+             for t in _row_layout(pool)]
+    pad = kv_row_bytes(pool) - sum(p.shape[1] for p in parts)
+    if pad:
+        parts.append(torch.zeros((n, pad), dtype=torch.uint8, device=dev))
+    return torch.cat(parts, dim=1)
+
+
+def stack_kv_rows(rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Concatenate page rows (``[k, row_bytes]`` slices of
+    :func:`pack_kv_pages` buffers, or their host copies) into one
+    ``[n, row_bytes]`` buffer (the JAX package's ``stack_kv_pages``;
+    its ``split_kv_pages`` is a row slice here), so a batched rehydrate
+    scatters all its pages in one :func:`unpack_kv_pages`."""
+    if len(rows) == 1:
+        return rows[0]
+    return torch.cat(list(rows), dim=0)
+
+
+@torch.inference_mode()
+def unpack_kv_pages(pool: KVCache, rows: torch.Tensor,
+                    pids: Sequence[int]) -> None:
+    """Write page rows (:func:`pack_kv_pages`'s layout, on the pool's
+    device) into physical pages ``pids`` of every pool tensor, in
+    place: one indexed write per pool tensor, whatever the page count
+    (the JAX package's ``scatter_kv_pages``). In place, never a new
+    pool: a captured decode graph holds the pool tensors' addresses.
+    The destination ids need not be the pages the rows came from."""
+    dev = pool[0][0].device
+    idx = torch.as_tensor(list(pids), dtype=torch.long, device=dev)
+    n = idx.numel()
+    if rows.shape != (n, kv_row_bytes(pool)):
+        raise ValueError(f"page rows {tuple(rows.shape)} do not fit {n} "
+                         f"pages of {kv_row_bytes(pool)} bytes")
+    off = 0
+    for t in _row_layout(pool):
+        nbytes = t[0].numel() * t.element_size()
+        src = rows[:, off:off + nbytes].view(t.dtype).view(
+            n, *t.shape[1:])
+        t.index_copy_(0, idx, src)
+        off += nbytes
 
 
 @torch.inference_mode()

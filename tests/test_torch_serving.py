@@ -148,9 +148,11 @@ def test_counters_and_summary(served):
 
 def test_unported_options_and_bad_requests_raise(served):
     model, _ = served
-    with pytest.raises(NotImplementedError, match="host_pool_bytes"):
-        GenerationServer(model, _greedy(), page_size=128,
-                         host_pool_bytes=1 << 20)
+    # the host KV tier is ported: a tier without paging stays refused,
+    # as the JAX server refuses it (without prefix sharing:
+    # test_torch_serving_tiered.py)
+    with pytest.raises(ValueError, match="paged mode"):
+        GenerationServer(model, _greedy(), host_pool_bytes=1 << 20)
     with pytest.raises(ValueError, match="device_loop_ticks"):
         GenerationServer(model, _greedy(), device_loop_ticks=0)
     loop = GenerationServer(model, gen.GenerationConfig(
